@@ -3,9 +3,10 @@
 The module tree and names mirror the JAX package (`core/`, `data/`,
 `fields/`, `ops/`, `render/`, `train/`), which stays the reference each
 slice of the port is tested against. Plain tensor code is PyTorch; the
-plane-table gradient that the JAX package wrote as a Pallas TPU kernel is a
-CUDA kernel for sm_90a (`csrc/coalesce.cu`, bound in `ops/coalesced.py`),
-built on first use into `build/rodynrf_tpu_torch/`.
+two plane-table gradients that the JAX package wrote as Pallas TPU kernels
+are CUDA kernels for sm_90a (`csrc/coalesce.cu`, bound in
+`ops/coalesced.py`; `csrc/segsum.cu`, bound in `ops/segsum.py`), built on
+first use into `build/rodynrf_tpu_torch/`.
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for the
 CPU; on CPU tensors every kernel wrapper takes its plain PyTorch version.

@@ -3,7 +3,7 @@ rodynrf_tpu/fields/config.py).
 
 Carries every hyperparameter the reference threads through TensorBase.__init__
 (reference: models/tensorBase.py:281-339) — minus device/aabb, which are
-runtime tensors. Tables are f32 in this slice (the trainer refuses --bf16 1).
+runtime tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -34,10 +35,22 @@ class FieldConfig:
     view_pe: int = 6
     fea_pe: int = 6
     featureC: int = 128
+    # 'bfloat16' packs the gather tables in bf16 (interpolation, MLPs and
+    # optimizers stay f32); 'float32' keeps them f32
+    grid_sample_dtype: str = "float32"
     # multiscale table layout: 'strided' (one corner-packed table per stride),
-    # 'merged' (one row per joint multiscale cell, not ported yet) or 'auto'
-    # (picks by table bytes, ops/fused_vm.pack_vm)
+    # 'merged' (one row per joint multiscale cell) or 'auto' (picks by table
+    # bytes, ops/fused_vm.resolve_layout)
     vm_layout: str = "auto"
+
+    @property
+    def gather_dtype(self):
+        """The packed tables' dtype: torch.bfloat16, or None for f32."""
+        if self.grid_sample_dtype == "float32":
+            return None
+        if self.grid_sample_dtype == "bfloat16":
+            return torch.bfloat16
+        raise ValueError(f"unknown grid_sample_dtype {self.grid_sample_dtype!r}")
 
     def with_grid(self, grid_size) -> "FieldConfig":
         return dataclasses.replace(self, grid_size=tuple(int(g) for g in grid_size))

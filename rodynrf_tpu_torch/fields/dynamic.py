@@ -17,7 +17,7 @@ from ..ops.fused_vm import pack_vm, sample_vm_fused
 from ..ops.regularizers import tv_loss_vm, vm_outer_l1
 from .config import FieldConfig
 from .mlps import init_shading, linear, linear_init, mlp_apply, mlp_init, uniform
-from .static import feature2density, init_vm
+from .static import feature2density, init_vm, upsample_vm
 
 MULTISCALE_STRIDES = (1, 2, 4)
 
@@ -78,8 +78,9 @@ def _head_inputs(vm_feats, xyz_n, t):
 
 def pack_tables(params, cfg: FieldConfig):
     """Fused gather tables for the dynamic field's three grids (density,
-    blending, appearance share the warped sample coordinates). Build once
-    per step and share across passes."""
+    blending, appearance share the warped sample coordinates), in the
+    config's gather dtype and layout ('auto' picks by table bytes). Build
+    once per step and share across passes."""
     return pack_vm(
         [
             (params["density_plane"], params["density_line"]),
@@ -87,6 +88,7 @@ def pack_tables(params, cfg: FieldConfig):
             (params["app_plane"], params["app_line"]),
         ],
         strides=MULTISCALE_STRIDES,
+        gather_dtype=cfg.gather_dtype,
         layout=cfg.vm_layout,
     )
 
@@ -141,3 +143,14 @@ def tv_blending(params) -> torch.Tensor:
 
 def tv_app(params) -> torch.Tensor:
     return tv_loss_vm(params["app_plane"], params["app_line"])
+
+
+def upsample_dynamic_field(params, res_target):
+    """(reference: tensoRF.py:837-850). Returns a new tree: planes and lines
+    resized, every other leaf the same tensor."""
+    out = dict(params)
+    for name in ("density", "blending", "app"):
+        out[f"{name}_plane"], out[f"{name}_line"] = upsample_vm(
+            params[f"{name}_plane"], params[f"{name}_line"], res_target
+        )
+    return out

@@ -14,7 +14,12 @@ from __future__ import annotations
 import torch
 
 from ..ops.fused_vm import pack_vm, sample_vm_fused
-from ..ops.grid_sample import MAT_MODE, VEC_MODE
+from ..ops.grid_sample import (
+    MAT_MODE,
+    VEC_MODE,
+    resize_bilinear_align_corners,
+    resize_line_align_corners,
+)
 from ..ops.regularizers import tv_loss_vm, vm_outer_l1
 from .config import FieldConfig
 from .mlps import init_shading, uniform
@@ -51,13 +56,15 @@ def init_static_field(gen: torch.Generator, cfg: FieldConfig):
 
 def pack_tables(params, cfg: FieldConfig):
     """Fused gather tables for the static field: density and appearance
-    grids share one corner-packed table per orientation (one stride)."""
+    grids share one corner-packed table per orientation (one stride, so the
+    layout is always strided), in the config's gather dtype."""
     return pack_vm(
         [
             (params["density_plane"], params["density_line"]),
             (params["app_plane"], params["app_line"]),
         ],
         strides=(1,),
+        gather_dtype=cfg.gather_dtype,
     )
 
 
@@ -102,3 +109,26 @@ def tv_app(params) -> torch.Tensor:
     return tv_loss_vm(params["app_plane"], params["app_line"])
 
 
+def upsample_vm(planes, lines, res_target):
+    """align_corners bilinear grid upsample (reference: tensoRF.py:198-220)."""
+    new_planes, new_lines = [], []
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        new_planes.append(
+            resize_bilinear_align_corners(planes[i], (res_target[m1], res_target[m0]))
+        )
+        new_lines.append(resize_line_align_corners(lines[i], res_target[VEC_MODE[i]]))
+    return new_planes, new_lines
+
+
+def upsample_static_field(params, res_target):
+    """(reference: tensoRF.py:222-232). Returns a new tree: planes and lines
+    resized, every other leaf the same tensor."""
+    out = dict(params)
+    out["density_plane"], out["density_line"] = upsample_vm(
+        params["density_plane"], params["density_line"], res_target
+    )
+    out["app_plane"], out["app_line"] = upsample_vm(
+        params["app_plane"], params["app_line"], res_target
+    )
+    return out

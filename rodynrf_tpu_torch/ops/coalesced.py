@@ -1,13 +1,18 @@
-"""Corner-packed plane sampling with a hand-written table-gradient kernel
-(port of rodynrf_tpu/ops/coalesced.py, strided layout).
+"""Corner-packed plane sampling with hand-written table-gradient kernels
+(port of rodynrf_tpu/ops/coalesced.py).
 
-`planes_sample` is the hot primitive of the train step: gather one
-corner-packed table row per sample and weight its four bilinear corners. Its
-backward re-gathers the rows for the weight cotangent (the [M, 4C] gathered
-block is never saved for backward) and computes the table cotangent with
-`coalesce_table_grad`: the CUDA kernel `csrc/coalesce.cu` on the card (the
-port of the Pallas kernel `_coalesce_kernel`), its plain PyTorch version on
-the CPU.
+`planes_sample` (strided layout) and `merged_sample` (merged-stride layout)
+are the hot primitives of the train step: gather one table row per sample
+and weight its bilinear corners. Their backward re-gathers the rows for the
+weight cotangent (the gathered block is never saved for backward) and
+computes the table cotangent with a kernel:
+
+- `planes_sample`: `coalesce_table_grad`, the CUDA kernel `csrc/coalesce.cu`
+  on the card (the port of the Pallas kernel `_coalesce_kernel`);
+- `merged_sample`: `ops/segsum.segment_rows_sum`, the CUDA kernel
+  `csrc/segsum.cu` (the port of the Pallas segment-sum kernel).
+
+On the CPU each takes its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .segsum import segment_rows_sum
 
 
 def _fwd_math(table: torch.Tensor, rows: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
@@ -55,11 +61,68 @@ class _PlanesSample(torch.autograd.Function):
 def planes_sample(table: torch.Tensor, rows: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
     """feats[m] = Σ_k w4[m,k] · table[rows[m], k·C:(k+1)·C]  ->  [M, C] f32.
 
-    table [R, 4C] corner-packed rows (ops/fused_vm.pack_vm layout); rows [M]
-    int32 row ids in range; w4 [M, 4] f32 corner weights (already × valid).
-    Differentiable w.r.t. table and w4.
+    table [R, 4C] corner-packed rows (ops/fused_vm.pack_vm layout), f32 or
+    bf16; rows [M] int32 row ids in range; w4 [M, 4] f32 corner weights
+    (already × valid). Differentiable w.r.t. table and w4.
+
+    The table cotangent is accumulated in f32 whatever the table dtype (the
+    f32 cotangent goes into the kernel, the sum is cast to the table dtype):
+    the JAX package's `impl='pallas'` contract. Its default `'auto'` route
+    casts the cotangent to bf16 before an XLA scatter and so accumulates a
+    bf16 table's gradient in bf16.
     """
     return _PlanesSample.apply(table, rows, w4)
+
+
+def _merged_fwd_math(table: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    M, nS = w.shape[0], w.shape[1]
+    C = table.shape[1] // (nS * 4)
+    vals = table.index_select(0, rows).view(M, nS, 4, C)
+    return (
+        vals[:, :, 0].float() * w[:, :, 0, None]
+        + vals[:, :, 1].float() * w[:, :, 1, None]
+        + vals[:, :, 2].float() * w[:, :, 2, None]
+        + vals[:, :, 3].float() * w[:, :, 3, None]
+    )
+
+
+class _MergedSample(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, rows, w):
+        ctx.save_for_backward(table, rows, w)
+        return _merged_fwd_math(table, rows, w)
+
+    @staticmethod
+    def backward(ctx, ct):
+        table, rows, w = ctx.saved_tensors
+        ct = ct.contiguous()
+        M, nS, C = ct.shape
+        ct_table = ct_w = None
+        if ctx.needs_input_grad[2]:
+            # re-gather instead of storing the [M, nS, 4, C] block; one
+            # corner at a time keeps the f32 copy to [M, nS, C]
+            vals = table.index_select(0, rows).view(M, nS, 4, C)
+            ct_w = torch.stack([(ct * vals[:, :, k].float()).sum(-1) for k in range(4)], -1)
+        if ctx.needs_input_grad[0]:
+            # u[m, (s, k, c)] = w[m, s, k] · ct[m, s, c], formed in f32 and
+            # rounded once to the table dtype (what autodiff of the JAX
+            # package's inline merged take produces), summed per row in f32
+            u = (w[:, :, :, None] * ct[:, :, None, :]).to(table.dtype).view(M, nS * 4 * C)
+            ct_table = segment_rows_sum(rows, u, table.shape[0]).to(table.dtype)
+        return ct_table, None, ct_w
+
+
+def merged_sample(table: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Merged-layout corner sampling -> [M, nS, C] per-stride features, f32.
+
+    table [R, nS·4·C] merged-stride corner rows (channel blocks [stride:
+    corner: C], ops/fused_vm merged layout), f32 or bf16; rows [M] int32
+    merged-cell row ids in range; w [M, nS, 4] f32 per-stride corner weights
+    (× valid). The forward's FMA order is the strided path's, so f32 merged
+    features equal strided ones bit for bit. Autograd keeps only (table,
+    rows, w). Differentiable w.r.t. table and w.
+    """
+    return _MergedSample.apply(table, rows, w)
 
 
 # ---------------------------------------------------------------------------

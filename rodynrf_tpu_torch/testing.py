@@ -25,7 +25,7 @@ def tiny_cmd(ray_type: str = "ndc", optimize: int = 1, batch: int | None = None)
         f"--TV_weight_density 0.1 --TV_weight_app 0.01 --L1_weight_inital 8e-5 "
         f"--distortion_weight_static 0.02 --distortion_weight_dynamic 0.005 "
         f"--optimize_poses {optimize} --optimize_focal_length {optimize} --use_disp 1 "
-        f"--bf16 0"  # f32 tables: the port's slice is the f32 step
+        f"--bf16 0"  # f32 tables: the parity tests compare at float tolerances
     )
 
 

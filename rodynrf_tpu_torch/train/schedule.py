@@ -1,11 +1,10 @@
-"""Host-side training schedules: per-group learning rates and the ray
-sampler (port of rodynrf_tpu/train/schedule.py without the upsample part,
-which comes with the upsample slice).
+"""Host-side training schedules: per-group learning rates, voxel
+upsampling and the ray sampler (port of rodynrf_tpu/train/schedule.py).
 
 Replicates the reference's learning-rate state machine (reference:
-train.py:924-1009 setup, 2350-2351 per-step decay, 2608-2610 the half-time
-pose/focal freeze) as per-iteration learning rates that the train step
-writes into its optimizer groups.
+train.py:924-1009 setup, 2350-2351 per-step decay, 2582-2610 upsample resets
+and the half-time pose/focal freeze) as per-iteration learning rates that
+the train step writes into its optimizer groups.
 """
 
 from __future__ import annotations
@@ -14,6 +13,14 @@ from dataclasses import dataclass
 from typing import List
 
 import numpy as np
+
+
+def n_voxel_schedule(n_init: int, n_final: int, n_upsamples: int) -> List[int]:
+    """Log-linear voxel counts (reference: train.py:937-947)."""
+    return [
+        int(round(float(x)))
+        for x in np.exp(np.linspace(np.log(n_init), np.log(n_final), n_upsamples + 1))
+    ][1:]
 
 
 @dataclass
@@ -27,6 +34,8 @@ class LrSchedule:
     upsamp_list: List[int]
     optimize_poses: bool
     optimize_focal: bool
+    lr_upsample_reset: bool = True
+    lr_decay_target_ratio: float = 0.1
     lr_pose_init: float = 3e-3  # (train.py:992)
     lr_pose_end: float = 1e-5
 
@@ -60,6 +69,18 @@ class LrSchedule:
             # optimize_poses=0 — fixed by just zeroing our scalars)
             self.lr_pose = 0.0
             self.lr_focal = 0.0
+
+    def on_upsample(self, iteration: int):
+        """Upsample-time resets (train.py:2589-2606)."""
+        if self.lr_upsample_reset:
+            lr_scale = 1.0
+            if self.optimize_poses:
+                self.lr_pose = self.lr_pose_init
+            if self.optimize_focal and iteration >= self.upsamp_list[3]:
+                self.lr_focal = self.lr_pose_init
+        else:
+            lr_scale = self.lr_decay_target_ratio ** (iteration / self.n_iters)
+        self.main_mult = lr_scale
 
 
 class PermutationSampler:

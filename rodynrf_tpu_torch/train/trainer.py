@@ -1,12 +1,15 @@
 """Trainer: owns params, optimizers, schedules and the train step (port of
-rodynrf_tpu/train/trainer.py, `__init__` and `run_step`; reference
-train.py:824-2658).
+rodynrf_tpu/train/trainer.py, `__init__`, `run_step` and `_upsample`;
+reference train.py:824-2658).
 
-What this slice of the port lacks is refused with NotImplementedError
-rather than ignored: bf16 gather tables, the merged table layout, batched
-passes, rematerialization, gradient accumulation, train-time compaction,
-appearance compaction, more than one device, resuming, and the voxel
-upsample at an `upsamp_list` iteration.
+Runs the JAX package's default recipe: bf16 or f32 gather tables, the
+strided or merged table layout ('auto' picks per field by table bytes), and
+the voxel upsample at every `upsamp_list` iteration, after which the layout
+is chosen anew. What the port lacks is refused with NotImplementedError
+rather than ignored: batched passes, rematerialization, gradient
+accumulation, train-time and appearance compaction, sharded grids, the
+table-gradient routes other than the kernels, more than one device, and
+resuming.
 """
 
 from __future__ import annotations
@@ -18,11 +21,18 @@ import torch
 
 from ..data.scene import SceneData, default_focal
 from ..fields import FieldConfig, cal_n_samples, n_to_reso
-from ..fields.dynamic import init_dynamic_field
-from ..fields.static import init_static_field
+from ..fields import dynamic as dyn_field
+from ..fields import static as stat_field
 from .convert import params_from_numpy, params_to_numpy
-from .schedule import LrSchedule, PermutationSampler
-from .step import LossWeights, StepStatics, check_device, init_opt_state, make_train_step
+from .schedule import LrSchedule, PermutationSampler, n_voxel_schedule
+from .step import (
+    LossWeights,
+    StepStatics,
+    check_device,
+    init_opt_state,
+    make_train_step,
+    named_leaves,
+)
 
 
 def init_pose_params(scene: SceneData, n_cams: int) -> np.ndarray:
@@ -39,14 +49,10 @@ def init_pose_params(scene: SceneData, n_cams: int) -> np.ndarray:
 
 
 def _refuse_unported(args, device: torch.device):
-    """NotImplementedError for every option this slice does not implement."""
+    """NotImplementedError for every option the port does not implement."""
     def no(what):
         raise NotImplementedError(f"{what} is not ported to rodynrf_tpu_torch yet (ROADMAP.md)")
 
-    if int(getattr(args, "bf16", 0)):
-        no("--bf16 1 (bfloat16 gather tables); pass --bf16 0")
-    if getattr(args, "vm_layout", "auto") == "merged":
-        no("--vm_layout merged")
     if int(getattr(args, "fused_passes", 0)):
         no("--fused_passes 1")
     if getattr(args, "remat", "auto") == "on":
@@ -60,8 +66,8 @@ def _refuse_unported(args, device: torch.device):
     if int(getattr(args, "shard_grids", 0)):
         no("--shard_grids 1")
     if getattr(args, "grad_impl", "autodiff") != "autodiff":
-        no(f"--grad_impl {args.grad_impl} (the port has one table-gradient route, "
-           "the coalesce kernel)")
+        no(f"--grad_impl {args.grad_impl} (the port's table gradients are the coalesce "
+           "and segment-sum kernels)")
     if getattr(args, "ckpt", None):
         no("resuming from --ckpt")
     n_dev = int(getattr(args, "n_devices", 0))
@@ -106,6 +112,7 @@ class Trainer:
             pos_pe=args.pos_pe,
             view_pe=args.view_pe,
             featureC=args.featureC,
+            grid_sample_dtype="bfloat16" if int(getattr(args, "bf16", 0)) else "float32",
             vm_layout=getattr(args, "vm_layout", "auto"),
         )
         # static model uses fea_pe=2, dynamic fea_pe=0 (train.py:889, 918)
@@ -117,8 +124,8 @@ class Trainer:
         )
 
         params = {
-            "static": init_static_field(self.gen, self.static_cfg),
-            "dynamic": init_dynamic_field(self.gen, self.dynamic_cfg),
+            "static": stat_field.init_static_field(self.gen, self.static_cfg),
+            "dynamic": dyn_field.init_dynamic_field(self.gen, self.dynamic_cfg),
             "pose": torch.from_numpy(init_pose_params(scene, args.N_voxel_t)),
             "fov": torch.full((1, 1), 30.0 / 180.0 * np.pi),
         }
@@ -137,6 +144,11 @@ class Trainer:
             upsamp_list=list(args.upsamp_list),
             optimize_poses=bool(args.optimize_poses),
             optimize_focal=bool(args.optimize_focal_length),
+            lr_upsample_reset=bool(args.lr_upsample_reset),
+            lr_decay_target_ratio=args.lr_decay_target_ratio,
+        )
+        self.n_voxel_list = n_voxel_schedule(
+            args.N_voxel_init, args.N_voxel_final, len(args.upsamp_list)
         )
         self.sampler = PermutationSampler(scene.n_rays, args.batch_size, args.seed)
         self.sampler2 = PermutationSampler(scene.n_rays, args.batch_size, args.seed + 1)
@@ -189,14 +201,23 @@ class Trainer:
             share_forward=bool(getattr(a, "share_forward", 1)),
         )
 
+    def table_layouts(self) -> Dict[str, str]:
+        """The gather-table layout each field's step uses at the current grid
+        ('strided' or 'merged'; 'auto' resolved by table bytes)."""
+        with torch.no_grad():
+            return {
+                "static": stat_field.pack_tables(
+                    self.params["static"], self.static_cfg).meta["layout"],
+                "dynamic": dyn_field.pack_tables(
+                    self.params["dynamic"], self.dynamic_cfg).meta["layout"],
+            }
+
     def run_step(self) -> Dict[str, torch.Tensor]:
-        """One iteration; returns the step's metrics (detached tensors)."""
+        """One iteration; returns the step's metrics (detached tensors). An
+        iteration in `upsamp_list` ends with the voxel upsample, so the new
+        grid is first used by the next iteration (the reference's in-body
+        check, train.py:2582)."""
         i = self.iteration
-        if i in self.args.upsamp_list:
-            raise NotImplementedError(
-                f"iteration {i} ends with a voxel upsample, which is not ported to "
-                "rodynrf_tpu_torch yet (ROADMAP.md)"
-            )
         ray_idx = torch.as_tensor(self.sampler.nextids(), dtype=torch.int64).to(self.device)
         ray_idx_rand = torch.as_tensor(self.sampler2.nextids(), dtype=torch.int64).to(self.device)
         sc = {"iteration": i, "focal_fixed": self.focal_fixed, **self.schedule.scalars(i)}
@@ -205,4 +226,28 @@ class Trainer:
         )
         self.schedule.after_step(i)
         self.iteration += 1
+        if i in self.args.upsamp_list:
+            self._upsample(i)
         return metrics
+
+    def _upsample(self, iteration: int):
+        """Coarse-to-fine grid growth (reference: train.py:2582-2606). The
+        fields' Adam starts fresh (train.py:2606 recreates the main
+        optimizer); the pose and fov Adams and their moments survive, as in
+        the reference (only their lr is touched, 2592-2595). The step is
+        rebuilt for the new sample count and grid."""
+        n_voxels = self.n_voxel_list.pop(0)
+        reso = n_to_reso(n_voxels, self.scene.scene_bbox)
+        self.n_samples = min(self.args.nSamples, cal_n_samples(reso, self.args.step_ratio))
+        with torch.no_grad():
+            static = stat_field.upsample_static_field(self.params["static"], reso)
+            dynamic = dyn_field.upsample_dynamic_field(self.params["dynamic"], reso)
+        for _, t in named_leaves((static, dynamic)):
+            t.requires_grad_(True)  # the resized planes and lines: new leaves
+        self.params = dict(self.params, static=static, dynamic=dynamic)
+        self.static_cfg = self.static_cfg.with_grid(reso)
+        self.dynamic_cfg = self.dynamic_cfg.with_grid(reso)
+        self.schedule.on_upsample(iteration)
+        fresh = init_opt_state(self.params)
+        self.opt_state = dict(self.opt_state, fields=fresh["fields"])
+        self.step_fn = make_train_step(self._statics(), device=self.device)

@@ -4,7 +4,8 @@ static and dynamic `all_features_fused` (values, and the dynamic one's
 parameter gradients), the deformation warp, scene flow, and the dense
 field evaluations of render/pipeline.py. Tolerance 1e-5 (f32 sums in
 another order; the line factors are a lerp in the port, a hat-weight matmul
-in the JAX package).
+in the JAX package). The voxel upsample of both fields (align_corners
+resize by interpolation matrices, f32 in both) at 1e-6.
 """
 
 import jax
@@ -136,3 +137,21 @@ def test_dense_field_evals(fields):
             assert (g is None) == (w is None), (name, field)
             if g is not None:
                 _close(g, w)
+
+
+@pytest.mark.parametrize("which", ["static", "dynamic"])
+def test_upsample_field_matches_jax(fields, which):
+    res = (11, 14, 7)  # every axis grows, by uneven factors
+    jup = {"static": jstat.upsample_static_field, "dynamic": jdyn.upsample_dynamic_field}[which]
+    tup = {"static": tstat.upsample_static_field, "dynamic": tdyn.upsample_dynamic_field}[which]
+    key = {"static": "st", "dynamic": "dn"}[which]
+    jp, tp = fields["j" + key], fields["t" + key]
+    want = _np(jup(jp, res))
+    with torch.no_grad():
+        got = params_to_numpy(tup(tp, res))
+    got_l, want_l = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(got_l) == len(want_l)
+    for g, w in zip(got_l, want_l):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+    assert got["density_plane"][0].shape[1:] == (res[1], res[0])

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: importing every module of rodynrf_tpu_torch,
-and what chip_smoke.py imports, loads no JAX and nothing of the JAX package,
-and neither builds nor needs nvcc (kernels build on first launch only)."""
+"""Import hygiene of the port: importing every module of rodynrf_tpu_torch
+(the kernel modules ops/coalesced.py and ops/segsum.py among them), and what
+chip_smoke.py imports, loads no JAX and nothing of the JAX package, and
+neither builds nor needs nvcc (kernels build on first launch only)."""
 
 import json
 import os
@@ -41,7 +42,8 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     expected = {"rodynrf_tpu_torch.ops.coalesced", "rodynrf_tpu_torch.ops.fused_vm",
-                "rodynrf_tpu_torch.train.step", "rodynrf_tpu_torch.train.trainer"}
+                "rodynrf_tpu_torch.ops.segsum", "rodynrf_tpu_torch.train.step",
+                "rodynrf_tpu_torch.train.trainer"}
     assert expected <= set(res["modules"])
     assert res["bad"] == []
     assert res["started"] == []

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions.
+"""The port's CUDA kernels (coalesce, segment sum) against their plain
+PyTorch versions.
 
 Imports torch and numpy only, so it runs on a machine with a card:
 
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from rodynrf_tpu_torch.ops import coalesced as tco
+from rodynrf_tpu_torch.ops import segsum as tseg
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -122,3 +124,85 @@ def test_cpu_route_takes_the_plain_version_and_counts_nothing():
     assert tco.coalesce_table_grad.launches == before
     np.testing.assert_array_equal(got.numpy(),
                                   tco.coalesce_table_grad_plain(rows, w4, ct, 40).numpy())
+
+
+def _segsum_inputs(seed, M, R, C, pattern, dtype):
+    rows, _, _ = _inputs(seed, M, R, 1, pattern)
+    if pattern == "trash":  # entries on the trash bin n_rows are dropped
+        rows[::3] = R
+    upd = np.random.default_rng(seed + 1).standard_normal((M, C)).astype(np.float32)
+    return torch.from_numpy(rows), torch.from_numpy(upd).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,R,C,pattern", [
+    (3000, 257, 960, "hot"),
+    (2048, 64, 240, "uniform"),
+    (600, 4096, 8, "blocks"),
+    (5000, 33, 264, "one_row"),
+    (700, 90, 16, "trash"),
+    (1, 7, 24, "uniform"),
+])
+def test_segsum_kernel_matches_plain(M, R, C, pattern, dtype):
+    dev = _card()
+    idx, upd = (t.to(dev) for t in _segsum_inputs(M + C, M, R, C, pattern, dtype))
+    before = tseg.sorted_segment_rows_sum.launches
+    got = tseg.segment_rows_sum(idx, upd, R)
+    again = tseg.segment_rows_sum(idx, upd, R)
+    keys, perm = torch.sort(idx, stable=True)
+    in_order = tseg.sorted_segment_rows_sum(keys, upd[perm].contiguous(), R)
+    torch.cuda.synchronize()
+    assert tseg.sorted_segment_rows_sum.launches == before + 3
+    want = tseg.segment_rows_sum_plain(idx, upd, R)
+    scale = float(want.abs().max())
+    for g in (got, in_order):
+        assert g.dtype == torch.float32 and g.shape == (R, C)
+        assert float((g - want).abs().max()) <= 1e-4 * scale
+    assert torch.equal(got, again)  # deterministic: no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad_row", [-1, 51])
+def test_segsum_kernel_asserts_on_rows_out_of_range(bad_row):
+    """An index outside [0, n_rows] (n_rows = 50 is the trash bin) trips the
+    kernel's device-side assert: run it in a process of its own."""
+    _card()
+    code = (
+        "import torch\n"
+        "from rodynrf_tpu_torch.ops.segsum import segment_rows_sum\n"
+        "idx = torch.arange(700, device='cuda', dtype=torch.int32) % 50\n"
+        f"idx[::7] = {bad_row}\n"
+        "upd = torch.randn(700, 16, device='cuda')\n"
+        "segment_rows_sum(idx, upd, 50)\n"
+        "torch.cuda.synchronize()\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode != 0
+    assert "assert" in (proc.stdout + proc.stderr).lower()
+
+
+@pytest.mark.cuda
+def test_segsum_kernel_edge_cases_and_refusals():
+    dev = _card()
+    before = tseg.sorted_segment_rows_sum.launches
+    got = tseg.segment_rows_sum(torch.empty(0, dtype=torch.int32, device=dev),
+                                torch.empty(0, 16, device=dev), 30)
+    assert got.shape == (30, 16) and not bool(got.any())
+    assert tseg.sorted_segment_rows_sum.launches == before
+    idx = torch.zeros(64, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        tseg.segment_rows_sum(idx, torch.randn(64, 16, device=dev).double(), 4)
+    with pytest.raises(ValueError):  # a 12-value bf16 row is not 16-byte aligned
+        tseg.segment_rows_sum(idx, torch.randn(64, 12, device=dev).bfloat16(), 4)
+    with pytest.raises(ValueError):
+        tseg.sorted_segment_rows_sum(idx, torch.randn(16, 64, device=dev).t(), 4)
+
+
+def test_segsum_cpu_route_takes_the_plain_version_and_counts_nothing():
+    idx, upd = _segsum_inputs(3, 300, 40, 8, "trash", torch.bfloat16)
+    before = tseg.sorted_segment_rows_sum.launches
+    got = tseg.segment_rows_sum(idx, upd, 40)
+    assert tseg.sorted_segment_rows_sum.launches == before
+    np.testing.assert_array_equal(got.numpy(), tseg.segment_rows_sum_plain(idx, upd, 40).numpy())

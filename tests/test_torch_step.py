@@ -1,6 +1,6 @@
 """Whole-step parity: the port's train step against the JAX `train_loss` at
 the TINY shapes (f32, strided layout, golden_det, identical weights and ray
-batches).
+batches). The merged layout, bf16 and the upsample: test_torch_step_merged.py.
 
 - Every loss term and the total agree to 1e-5 relative.
 - Every parameter gradient (both fields, pose, fov) of a float64 run of the
@@ -204,28 +204,13 @@ def test_shared_and_unshared_forward_agree():
 
 
 @pytest.mark.parametrize("flag", [
-    "--bf16 1", "--vm_layout merged", "--fused_passes 1", "--remat on", "--grad_accum 2",
+    "--fused_passes 1", "--remat on", "--grad_accum 2",
     "--compact_train 1", "--app_frac 0.5", "--n_devices 2", "--ckpt some.npz",
     "--grad_impl csum", "--shard_grids 1",
 ])
 def test_unported_options_raise(flag):
     with pytest.raises(NotImplementedError):
         TTrainer(tparse(tiny_cmd("ndc", 1) + " " + flag), ttiny_scene("ndc"), device="cpu")
-
-
-def test_auto_layout_that_resolves_to_merged_raises():
-    # the TINY multiscale tables are small, so 'auto' picks merged
-    with pytest.raises(NotImplementedError):
-        tr = TTrainer(tparse(tiny_cmd("ndc", 1)), ttiny_scene("ndc"), device="cpu")
-        tr.run_step()
-
-
-def test_upsample_iteration_raises():
-    tr = TTrainer(tparse(CMD), ttiny_scene("ndc"), device="cpu")
-    tr.iteration = tr.args.upsamp_list[0]
-    with pytest.raises(NotImplementedError):
-        tr.run_step()
-    assert tr.iteration == tr.args.upsamp_list[0]
 
 
 def test_entry_points_default_to_the_card():
