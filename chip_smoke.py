@@ -88,6 +88,104 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def median_ms(fn, windows: int = 5, reps: int = 20):
+    """Median and spread (max - min) of `windows` CUDA-event windows of
+    `reps` launches each, after 3 warm launches."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    times.sort()
+    return times[len(times) // 2], times[-1] - times[0]
+
+
+def split_ms(pieces: dict) -> dict:
+    """{piece: (median ms, spread ms)} for each callable, timed alone."""
+    return {k: median_ms(fn) for k, fn in pieces.items()}
+
+
+def _log_split(kind, name, split):
+    log(f"[split] {kind} {name}: " + ", ".join(
+        f"{k} {m:.4f} ms (±{s:.4f})" for k, (m, s) in split.items()))
+
+
+def _stage_calls(lib, fn, args):
+    """The library call `fn(*args)` with one of its three launches at a time
+    (bit 0 the zero fill of empty rows, bit 1 the chunk walk, bit 2 the
+    fixup): callables for the split."""
+    def run(bit):
+        def call():
+            lib.rodynrf_set_stages(bit)
+            err = fn(*args)
+            lib.rodynrf_set_stages(7)
+            assert err == 0, err
+        return call
+    return {"zero_rows": run(1), "chunk_walk": run(2), "fixup": run(4)}
+
+
+def coalesce_split(rows, w4, ct, R, cast_dtype):
+    """Pieces of one coalesce call on the card: the stable sort, the int64
+    permutation's cast, the three launches, and the call site's cast."""
+    import ctypes
+    from rodynrf_tpu_torch.ops.coalesced import _lib
+
+    lib = _lib()
+    lib.rodynrf_set_stages.argtypes = [ctypes.c_int]
+    M, C = ct.shape
+    keys, perm64 = torch.sort(rows, stable=True)
+    perm = perm64.to(torch.int32)
+    out = torch.empty((R, 4 * C), dtype=torch.float32, device=ct.device)
+    n_chunks = -(-M // lib.rodynrf_coalesce_chunk())
+    head = torch.empty((n_chunks, 4 * C), dtype=torch.float32, device=ct.device)
+    tail = torch.empty_like(head)
+    args = (keys.data_ptr(), perm.data_ptr(), w4.data_ptr(), ct.data_ptr(), out.data_ptr(),
+            head.data_ptr(), tail.data_ptr(), M, R, C,
+            torch.cuda.current_stream(ct.device).cuda_stream)
+    pieces = {"sort": lambda: torch.sort(rows, stable=True),
+              "perm_int32": lambda: perm64.to(torch.int32),
+              **_stage_calls(lib, lib.rodynrf_coalesce_table_grad, args)}
+    if cast_dtype is not None:
+        pieces["cast"] = lambda: out.to(cast_dtype)
+    return split_ms(pieces)
+
+
+def segsum_split(rows, w, ct, R, dtype):
+    """Pieces of one merged backward's table gradient on the card: the u
+    pass, the stable sort, the permutation's cast, the three launches, the
+    call site's cast."""
+    import ctypes
+    from rodynrf_tpu_torch.ops.segsum import _lib
+
+    lib = _lib()
+    lib.rodynrf_set_stages.argtypes = [ctypes.c_int]
+    M, nS, C = ct.shape
+    W = nS * 4 * C
+    u = (w[:, :, :, None] * ct[:, :, None, :]).to(dtype).reshape(M, W)
+    keys, perm64 = torch.sort(rows, stable=True)
+    perm = perm64.to(torch.int32)
+    out = torch.empty((R, W), dtype=torch.float32, device=ct.device)
+    n_chunks = -(-M // lib.rodynrf_segsum_chunk())
+    head = torch.empty((n_chunks, W), dtype=torch.float32, device=ct.device)
+    tail = torch.empty_like(head)
+    args = (keys.data_ptr(), perm.data_ptr(), u.data_ptr(), u.element_size(), out.data_ptr(),
+            head.data_ptr(), tail.data_ptr(), M, R, W,
+            torch.cuda.current_stream(ct.device).cuda_stream)
+    pieces = {"u_pass": lambda: (w[:, :, :, None] * ct[:, :, None, :]).to(dtype).reshape(M, W),
+              "sort": lambda: torch.sort(rows, stable=True),
+              "perm_int32": lambda: perm64.to(torch.int32),
+              **_stage_calls(lib, lib.rodynrf_segsum, args),
+              "cast": lambda: out.to(dtype)}
+    return split_ms(pieces)
+
+
 def coalesce_bound_ms(M: int, R: int, C: int):
     """Least time for the table gradient: each input read once (rows int32,
     w4 [M,4] f32, ct [M,C] f32), the output [R,4C] f32 written once, over
@@ -160,10 +258,10 @@ def coalesce_cases(tr, gen):
 
 
 def segsum_cases(tr, gen):
-    """(name, rows, u, R) at the three merged table-gradient shapes of the
-    default path's dynamic field: rows from the merged row map at the warped
-    sample points, u = w · ct with the step's corner weights w and a seeded
-    ct, rounded to the table dtype (bf16) as merged_sample's backward does."""
+    """(name, rows, w, ct, R, table dtype) at the three merged table-gradient
+    shapes of the default path's dynamic field: rows from the merged row map
+    at the warped sample points, the step's corner weights w and a seeded
+    ct."""
     from rodynrf_tpu_torch.fields import dynamic as dyn
     from rodynrf_tpu_torch.ops.fused_vm import merged_rows_weights
 
@@ -179,9 +277,8 @@ def segsum_cases(tr, gen):
         M, nS = w.shape[0], w.shape[1]
         C = table.shape[1] // (nS * 4)
         ct = torch.randn((M, nS, C), generator=gen, device=tr.device)
-        u = (w[:, :, :, None] * ct[:, :, None, :]).to(table.dtype).reshape(M, nS * 4 * C)
-        cases.append((f"dynamic merged o{o}", rows.contiguous(), u, table.shape[0]))
-        del ct
+        cases.append((f"dynamic merged o{o}", rows.contiguous(), w.contiguous(), ct,
+                      table.shape[0], table.dtype))
     return cases
 
 
@@ -215,6 +312,11 @@ def check_coalesce(tr):
             # yardstick: index_add_ of the materialised [M, 4C] product
             library_ms=cuda_ms(lambda: acc.index_add_(0, rows, upd)),
         )
+        cast = torch.bfloat16 if name.startswith("static") else None  # the default path's tables
+        case["split"] = coalesce_split(rows, w4, ct, R, cast)
+        _log_split("coalesce_table_grad", name, case["split"])
+        case["section_ms"] = median_ms(
+            lambda: coalesce_table_grad(rows, w4, ct, R).to(cast or torch.float32))
         case["bound_ms"], case["bound_by"] = coalesce_bound_ms(M, R, C)
         _report("coalesce_table_grad", name, case, scale)
         results.append(case)
@@ -227,7 +329,10 @@ def check_segsum(tr):
 
     gen = torch.Generator(device=tr.device).manual_seed(1)
     results = []
-    for name, rows, u, R in segsum_cases(tr, gen):
+    for name, rows, w, ct, R, dtype in segsum_cases(tr, gen):
+        split = segsum_split(rows, w, ct, R, dtype)
+        _log_split("segment_rows_sum", name, split)
+        u = (w[:, :, :, None] * ct[:, :, None, :]).to(dtype).reshape(rows.shape[0], -1)
         M, C = u.shape
         got = segment_rows_sum(rows, u, R)
         want = segment_rows_sum_plain(rows, u, R)
@@ -242,10 +347,13 @@ def check_segsum(tr):
             # the plain version is one index_add_ call: it is the yardstick too
             plain_ms=plain_ms, library_ms=plain_ms,
         )
+        case["section_ms"] = median_ms(lambda: segment_rows_sum(
+            rows, (w[:, :, :, None] * ct[:, :, None, :]).to(dtype).reshape(M, C), R).to(dtype))
+        case["split"] = split
         case["bound_ms"], case["bound_by"] = segsum_bound_ms(M, R, C, u.element_size())
         _report("segment_rows_sum", name, case, scale)
         results.append(case)
-        del got, want, u
+        del got, want, u, ct
     return results
 
 
@@ -464,6 +572,7 @@ def small_input_reference():
 
 def main() -> int:
     t_start = time.time()
+    kernels_only = "--kernels-only" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
@@ -513,6 +622,10 @@ def main() -> int:
     log(f"[kernel] table-gradient kernels per train step (evals x shapes above): f32 strided "
         f"{f32_ms:.2f} ms (coalesce only); default {default_ms:.2f} ms (static coalesce at its "
         f"f32 cases + dynamic segment sum)")
+
+    if kernels_only:  # phases 1-3 alone, for measuring the kernels
+        log(json.dumps({"kernel_cases": {"coalesce": coalesce, "segsum": segsum}}))
+        return 0
 
     # 4, 4b, 4c. the main paths
     records = [drive_path(trainers["f32_strided"], "f32_strided", smi, f32_ms)]

@@ -50,6 +50,8 @@
 
 namespace {
 
+int g_stages = 7;  // bit 0 zero rows, bit 1 chunk walk, bit 2 fixup (split timing)
+
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kChunk = 64;   // sorted entries per warp
@@ -218,17 +220,17 @@ cudaError_t launch(int j, const int* keys, const int* perm, const float4* w4, co
                    cudaStream_t stream) {
   if (j == J) {
     const int row_warps = (R - 1) / kWarp + 1;
-    zero_empty_rows<<<(row_warps + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarp * kWarpsPerBlock,
+    if (g_stages & 1) zero_empty_rows<<<(row_warps + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarp * kWarpsPerBlock,
                       0, stream>>>(keys, out, M, R, C);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const int chunks = (M + kChunk - 1) / kChunk;
     const int blocks = (chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    coalesce_chunks<J><<<blocks, kWarp * kWarpsPerBlock, 0, stream>>>(
+    if (g_stages & 2) coalesce_chunks<J><<<blocks, kWarp * kWarpsPerBlock, 0, stream>>>(
         keys, perm, w4, ct, out, head, tail, M, R, C);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    coalesce_fixup<J><<<blocks, kWarp * kWarpsPerBlock, 0, stream>>>(keys, head, tail, out, M, R,
+    if (g_stages & 4) coalesce_fixup<J><<<blocks, kWarp * kWarpsPerBlock, 0, stream>>>(keys, head, tail, out, M, R,
                                                                       C);
     return cudaGetLastError();
   }
@@ -242,6 +244,8 @@ cudaError_t launch(int j, const int* keys, const int* perm, const float4* w4, co
 }  // namespace
 
 extern "C" {
+
+void rodynrf_set_stages(int s) { g_stages = s; }
 
 // Chunk size the caller sizes `head`/`tail` with: [ceil(M / chunk), 4C] f32 each.
 int rodynrf_coalesce_chunk() { return kChunk; }

@@ -45,6 +45,8 @@
 
 namespace {
 
+int g_stages = 7;  // bit 0 zero rows, bit 1 chunk walk, bit 2 fixup (split timing)
+
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kChunk = 64;   // sorted entries per warp
@@ -224,23 +226,25 @@ cudaError_t launch(const int* keys, const int* perm, const char* upd, int elem_b
                    float* head, float* tail, int M, int R, int C, cudaStream_t stream) {
   constexpr int N = V::kN;
   const int row_warps = (R - 1) / kWarp + 1;
-  zero_empty_rows<<<(row_warps + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarp * kWarpsPerBlock, 0,
+  if (g_stages & 1) zero_empty_rows<<<(row_warps + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarp * kWarpsPerBlock, 0,
                     stream>>>(keys, out, M, R, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int chunks = (M + kChunk - 1) / kChunk;
   const dim3 grid((chunks + kWarpsPerBlock - 1) / kWarpsPerBlock, (C + kWarp * N - 1) / (kWarp * N));
-  segsum_chunks<V><<<grid, kWarp * kWarpsPerBlock, 0, stream>>>(keys, perm, upd, elem_bytes, out,
+  if (g_stages & 2) segsum_chunks<V><<<grid, kWarp * kWarpsPerBlock, 0, stream>>>(keys, perm, upd, elem_bytes, out,
                                                                head, tail, M, R, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  segsum_fixup<N><<<grid, kWarp * kWarpsPerBlock, 0, stream>>>(keys, head, tail, out, M, R, C);
+  if (g_stages & 4) segsum_fixup<N><<<grid, kWarp * kWarpsPerBlock, 0, stream>>>(keys, head, tail, out, M, R, C);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
+
+void rodynrf_set_stages(int s) { g_stages = s; }
 
 // Chunk size the caller sizes `head`/`tail` with: [ceil(M / chunk), C] f32 each.
 int rodynrf_segsum_chunk() { return kChunk; }
