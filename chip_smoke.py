@@ -11,9 +11,17 @@ result):
   3. hold each kernel to its plain PyTorch version on the card, at the
      shapes the train step gives it, on inputs made from the step's own
      sample points: the coalesce kernel at the six strided table-gradient
-     shapes of the f32 path, the segment-sum kernel at the three merged
-     shapes of the default path; kernel, plain and library-call times beside
-     the memory-bandwidth bound;
+     shapes (bf16 output at the static field's, as on the default path),
+     the segment-sum kernel's factored form at the three merged shapes of
+     the default path; the bf16 output equal to the f32 output rounded, bit
+     for bit. Per shape: the split (the radix sort and each of the three
+     launches, timed alone), the kernel time (sort included; median and
+     spread of 5 CUDA-event windows of 20 calls), the plain version's and
+     the index_add_ yardstick's times, the bound of the contract, and the
+     backward's whole table-gradient section, new route against the
+     earlier composition (32-bit stable sort, int32 cast, f32 output, cast;
+     for the merged form also the u pass) timed in turns, with the device
+     launches of one call of each from the profiler;
   4. the f32 strided path: `Trainer.run_step` of the Nvidia recipe
      (configs/Nvidia_no_poses.txt with --bf16 0 --vm_layout strided) at the
      300³ grid (331×368×220, 270 samples per ray, batch 1024) on a synthetic
@@ -32,6 +40,9 @@ result):
      package): f32 strided, bf16 auto, and bf16 across the TINY upsample;
   6. a `main_path` JSON line per path, one JSON line of kernels, the
      nvidia-smi line, and the result line.
+
+`python3 chip_smoke.py --kernels-only` runs phases 1-3 alone and prints the
+cases as one `kernel_cases` JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -75,22 +86,9 @@ def nvidia_smi_line() -> str:
     return out[0]
 
 
-def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def median_ms(fn, windows: int = 5, reps: int = 20):
-    """Median and spread (max - min) of `windows` CUDA-event windows of
-    `reps` launches each, after 3 warm launches."""
+    """Median and spread (max - min) in ms of `windows` CUDA-event windows
+    of `reps` launches each, after 3 warm launches."""
     for _ in range(3):
         fn()
     times = []
@@ -107,103 +105,129 @@ def median_ms(fn, windows: int = 5, reps: int = 20):
     return times[len(times) // 2], times[-1] - times[0]
 
 
+def device_profile(fn, reps: int = 20):
+    """(device ms per call, device activities per call) of fn from
+    torch.profiler: the summed time of every kernel, memset and copy it ran
+    on the card over `reps` calls, after 3 warm calls. Unlike CUDA events it
+    leaves out the gaps where the card waits for the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    for _ in range(3):  # a session now and then records no device activity: take the next
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) or 0.0 for e in events)
+    return busy_us / 1e3 / reps, sum(e.count for e in events) / reps
+
+
+def log_activities(label: str, fn) -> None:
+    """The device activities of one call of fn, by name, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            log(f"[launches] {label}: x{e.count} "
+                f"{(getattr(e, 'self_device_time_total', 0.0) or 0.0):8.1f} us  {e.key[:100]}")
+
+
+def in_turns(old, new):
+    """Two callables timed in turns (old, new, new, old), by CUDA events and
+    by the profiler's device time: {"old"/"new": [event ms, device ms]},
+    each the mean of its two turns."""
+    runs = [(median_ms(f)[0], device_profile(f)[0]) for f in (old, new, new, old)]
+    mean = lambda a, b: [(x + y) / 2 for x, y in zip(a, b)]
+    return {"old": mean(runs[0], runs[3]), "new": mean(runs[1], runs[2])}
+
+
+def _stages(launch):
+    """One call's pieces alone on preallocated buffers (stage bits of
+    csrc/segreduce.cuh `Call`: 8 the radix sort, 1 zero fill, 2 chunk walk,
+    both in the one launch the call makes of them, 4 fixup)."""
+    return {"sort": lambda: launch(8), "zero_rows": lambda: launch(1),
+            "chunk_walk": lambda: launch(2), "zero_and_walk": lambda: launch(3),
+            "fixup": lambda: launch(4)}
+
+
 def split_ms(pieces: dict) -> dict:
-    """{piece: (median ms, spread ms)} for each callable, timed alone."""
-    return {k: median_ms(fn) for k, fn in pieces.items()}
+    """{piece: [event median ms, spread ms, device ms]} for each callable,
+    timed alone."""
+    return {k: [*median_ms(fn), device_profile(fn)[0]] for k, fn in pieces.items()}
 
 
 def _log_split(kind, name, split):
     log(f"[split] {kind} {name}: " + ", ".join(
-        f"{k} {m:.4f} ms (±{s:.4f})" for k, (m, s) in split.items()))
+        f"{k} {m:.4f} ms (±{s:.4f}; device {d:.4f})" for k, (m, s, d) in split.items()))
 
 
-def _stage_calls(lib, fn, args):
-    """The library call `fn(*args)` with one of its three launches at a time
-    (bit 0 the zero fill of empty rows, bit 1 the chunk walk, bit 2 the
-    fixup): callables for the split."""
-    def run(bit):
-        def call():
-            lib.rodynrf_set_stages(bit)
-            err = fn(*args)
-            lib.rodynrf_set_stages(7)
-            assert err == 0, err
-        return call
-    return {"zero_rows": run(1), "chunk_walk": run(2), "fixup": run(4)}
+def stable_sort_int32(rows):
+    """The earlier route's sort: torch's stable sort over all 32 key bits
+    with an int64 permutation, then its cast to int32."""
+    keys, perm = torch.sort(rows, stable=True)
+    return keys, perm.to(torch.int32)
 
 
-def coalesce_split(rows, w4, ct, R, cast_dtype):
-    """Pieces of one coalesce call on the card: the stable sort, the int64
-    permutation's cast, the three launches, and the call site's cast."""
-    import ctypes
-    from rodynrf_tpu_torch.ops.coalesced import _lib
-
-    lib = _lib()
-    lib.rodynrf_set_stages.argtypes = [ctypes.c_int]
-    M, C = ct.shape
-    keys, perm64 = torch.sort(rows, stable=True)
-    perm = perm64.to(torch.int32)
-    out = torch.empty((R, 4 * C), dtype=torch.float32, device=ct.device)
-    n_chunks = -(-M // lib.rodynrf_coalesce_chunk())
-    head = torch.empty((n_chunks, 4 * C), dtype=torch.float32, device=ct.device)
-    tail = torch.empty_like(head)
-    args = (keys.data_ptr(), perm.data_ptr(), w4.data_ptr(), ct.data_ptr(), out.data_ptr(),
-            head.data_ptr(), tail.data_ptr(), M, R, C,
-            torch.cuda.current_stream(ct.device).cuda_stream)
-    pieces = {"sort": lambda: torch.sort(rows, stable=True),
-              "perm_int32": lambda: perm64.to(torch.int32),
-              **_stage_calls(lib, lib.rodynrf_coalesce_table_grad, args)}
-    if cast_dtype is not None:
-        pieces["cast"] = lambda: out.to(cast_dtype)
-    return split_ms(pieces)
-
-
-def segsum_split(rows, w, ct, R, dtype):
-    """Pieces of one merged backward's table gradient on the card: the u
-    pass, the stable sort, the permutation's cast, the three launches, the
-    call site's cast."""
-    import ctypes
-    from rodynrf_tpu_torch.ops.segsum import _lib
-
-    lib = _lib()
-    lib.rodynrf_set_stages.argtypes = [ctypes.c_int]
-    M, nS, C = ct.shape
-    W = nS * 4 * C
-    u = (w[:, :, :, None] * ct[:, :, None, :]).to(dtype).reshape(M, W)
-    keys, perm64 = torch.sort(rows, stable=True)
-    perm = perm64.to(torch.int32)
-    out = torch.empty((R, W), dtype=torch.float32, device=ct.device)
-    n_chunks = -(-M // lib.rodynrf_segsum_chunk())
-    head = torch.empty((n_chunks, W), dtype=torch.float32, device=ct.device)
-    tail = torch.empty_like(head)
-    args = (keys.data_ptr(), perm.data_ptr(), u.data_ptr(), u.element_size(), out.data_ptr(),
-            head.data_ptr(), tail.data_ptr(), M, R, W,
-            torch.cuda.current_stream(ct.device).cuda_stream)
-    pieces = {"u_pass": lambda: (w[:, :, :, None] * ct[:, :, None, :]).to(dtype).reshape(M, W),
-              "sort": lambda: torch.sort(rows, stable=True),
-              "perm_int32": lambda: perm64.to(torch.int32),
-              **_stage_calls(lib, lib.rodynrf_segsum, args),
-              "cast": lambda: out.to(dtype)}
-    return split_ms(pieces)
-
-
-def coalesce_bound_ms(M: int, R: int, C: int):
+def coalesce_bound_ms(M: int, R: int, C: int, out_bytes: int):
     """Least time for the table gradient: each input read once (rows int32,
-    w4 [M,4] f32, ct [M,C] f32), the output [R,4C] f32 written once, over
-    the memory rate; 4·M·C FMAs over the f32 rate. Returns (ms, bound_by)."""
-    bytes_moved = 4 * M + 16 * M + 4 * M * C + 16 * R * C
+    w4 [M,4] f32, ct [M,C] f32), the output [R,4C] written once in its dtype
+    (out_bytes a value), over the memory rate; 4·M·C products and adds over
+    the f32 rate. Returns (ms, bound_by)."""
+    bytes_moved = 4 * M + 16 * M + 4 * M * C + out_bytes * 4 * R * C
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = 2 * 4 * M * C / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def segsum_bound_ms(M: int, R: int, C: int, elem_bytes: int):
-    """Least time for the segment sum: idx and perm (int32) and upd read
-    once, the output [R, C] f32 written once, over the memory rate; M·C
-    adds over the f32 rate. Returns (ms, bound_by)."""
-    bytes_moved = 8 * M + elem_bytes * M * C + 4 * R * C
+def factored_bound_ms(M: int, R: int, nS: int, C: int, out_bytes: int):
+    """Least time for the factored segment sum: idx (int32), w [M,nS,4] f32
+    and ct [M,nS,C] f32 read once, the output [R, nS·4·C] written once in
+    its dtype, over the memory rate; nS·4·C products and adds per entry over
+    the f32 rate. Returns (ms, bound_by)."""
+    W = nS * 4 * C
+    bytes_moved = 4 * M + 16 * nS * M + 4 * M * nS * C + out_bytes * R * W
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = M * C / FP32_FLOP_PER_S
+    t_ops = 2 * M * W / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ptxas_summary(report: str):
+    """[(kernel, "N registers, S bytes spilled")] from nvcc's -Xptxas -v
+    report, names demangled by c++filt where the toolkit's host has it."""
+    import re
+    import shutil
+
+    out, fn = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+        elif fn and "spill stores" in ln:
+            out[fn]["spill"] = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+        elif fn and "Used" in ln and "registers" in ln:
+            out[fn]["regs"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    names = list(out)
+    if names and shutil.which("c++filt"):
+        shown = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        if len(shown) == len(names):
+            names = [n.replace("segreduce::", "").replace("(anonymous namespace)::", "")
+                     for n in shown]
+    return [(n.split("(")[0] if "(" in n else n,
+             f"{v.get('regs', '?')} registers, {v.get('spill', 0)} bytes spilled")
+            for n, v in zip(names, out.values())]
 
 
 def sample_points(tr):
@@ -283,77 +307,134 @@ def segsum_cases(tr, gen):
 
 
 def _report(kind, name, case, scale):
-    log(f"[kernel] {kind} {name}: M={case['M']} R={case['R']} C={case['C']} "
-        f"max_abs_err={case['max_abs_err']:.3e} (tol {case['tol']:.3e}, max|plain| {scale:.3e}) "
-        f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
-        f"library {case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms")
+    sec = case["section"]
+    log(f"[kernel] {kind} {name}: M={case['M']} R={case['R']} C={case['C']} out {case['out']} "
+        f"max_abs_err={case['max_abs_err']:.3e} (tol {case['tol']:.3e}, max|plain| {scale:.3e}), "
+        f"{case['out']} = f32 rounded bit for bit: {case['out_bit_exact']}; kernel "
+        f"{case['ms']:.4f} ms (±{case['ms_spread']:.4f}; device {case['device_ms']:.4f}), plain "
+        f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} ms, bound "
+        f"{case['bound_ms']:.4f} ms; section old {sec['old'][0]:.4f} ms (device "
+        f"{sec['old'][1]:.4f}, {case['launches_old']:g} launches) -> new {sec['new'][0]:.4f} ms "
+        f"(device {sec['new'][1]:.4f}, {case['launches_new']:g} launches)")
     if not case["max_abs_err"] <= case["tol"]:
         raise AssertionError(f"{kind} kernel disagrees with its plain version at {name}")
+    if not case["out_bit_exact"]:
+        raise AssertionError(f"{kind} {name}: the {case['out']} output is not the f32 output "
+                             "rounded")
 
 
 def check_coalesce(tr):
-    from rodynrf_tpu_torch.ops.coalesced import coalesce_table_grad, coalesce_table_grad_plain
+    """The coalesce kernel at the six strided shapes, writing the table dtype
+    of the default path (bf16 for the static field, f32 for the dynamic one,
+    which is strided on the f32 path only)."""
+    from rodynrf_tpu_torch.ops import coalesced as tco
+    from rodynrf_tpu_torch.ops.segsum import key_bits, new_scratch
 
     gen = torch.Generator(device=tr.device).manual_seed(0)
+    lib = tco._lib()
+    f32 = torch.float32
     results = []
     for name, rows, w4, ct, R in coalesce_cases(tr, gen):
         M, C = ct.shape
-        got = coalesce_table_grad(rows, w4, ct, R)
-        want = coalesce_table_grad_plain(rows, w4, ct, R)
+        out = torch.bfloat16 if name.startswith("static") else f32
+        got32 = tco.coalesce_table_grad(rows, w4, ct, R)
+        got = tco.coalesce_table_grad(rows, w4, ct, R, out)
+        want = tco.coalesce_table_grad_plain(rows, w4, ct, R)
         torch.cuda.synchronize()
         scale = float(want.abs().max())
+        scratch = new_scratch(lib, M, key_bits(R - 1), 4 * C, ct.device)
+        buf = torch.empty_like(got)
+        split = split_ms(_stages(lambda bit: tco._launch(
+            lib, w4, ct, R, out, rows=rows, stages=bit, scratch=scratch, out=buf)))
+        _log_split("coalesce_table_grad", name, split)
+        new = lambda: tco.coalesce_table_grad(rows, w4, ct, R, out)
+
+        def old():  # the earlier call site: 32-bit stable sort, int32 cast, f32 out, cast
+            k, p = stable_sort_int32(rows)
+            return tco._launch(lib, w4, ct, R, f32, keys=k, perm=p).to(out)
+
+        if not results:  # what one call runs on the card, new route and earlier one
+            log_activities(f"coalesce {name} new", new)
+            log_activities(f"coalesce {name} old", old)
         upd = (w4[:, :, None] * ct[:, None, :]).reshape(M, 4 * C)
         acc = torch.zeros((R, 4 * C), device=tr.device)
+        ms, spread = median_ms(new)
+        device_ms, launches_new = device_profile(new)
         case = dict(
-            case=name, M=M, R=R, C=C, max_abs_err=float((got - want).abs().max()),
-            tol=KERNEL_RTOL * scale,
-            ms=cuda_ms(lambda: coalesce_table_grad(rows, w4, ct, R)),
-            plain_ms=cuda_ms(lambda: coalesce_table_grad_plain(rows, w4, ct, R)),
+            case=name, M=M, R=R, C=C, out=str(out).replace("torch.", ""),
+            max_abs_err=float((got32 - want).abs().max()), tol=KERNEL_RTOL * scale,
+            out_bit_exact=bool(torch.equal(got, got32.to(out))),
+            ms=ms, ms_spread=spread, device_ms=device_ms,
+            ms_f32=median_ms(lambda: tco.coalesce_table_grad(rows, w4, ct, R))[0],
+            plain_ms=median_ms(lambda: tco.coalesce_table_grad_plain(rows, w4, ct, R, out))[0],
             # yardstick: index_add_ of the materialised [M, 4C] product
-            library_ms=cuda_ms(lambda: acc.index_add_(0, rows, upd)),
+            library_ms=median_ms(lambda: acc.index_add_(0, rows, upd))[0],
+            split=split, section=in_turns(old, new),
+            launches_new=launches_new, launches_old=device_profile(old)[1],
         )
-        cast = torch.bfloat16 if name.startswith("static") else None  # the default path's tables
-        case["split"] = coalesce_split(rows, w4, ct, R, cast)
-        _log_split("coalesce_table_grad", name, case["split"])
-        case["section_ms"] = median_ms(
-            lambda: coalesce_table_grad(rows, w4, ct, R).to(cast or torch.float32))
-        case["bound_ms"], case["bound_by"] = coalesce_bound_ms(M, R, C)
+        case["bound_ms"], case["bound_by"] = coalesce_bound_ms(M, R, C, got.element_size())
         _report("coalesce_table_grad", name, case, scale)
         results.append(case)
-        del upd, acc, got, want
+        del upd, acc, got, got32, want, scratch, buf
     return results
 
 
 def check_segsum(tr):
-    from rodynrf_tpu_torch.ops.segsum import segment_rows_sum, segment_rows_sum_plain
+    """The segment-sum kernel at the three merged shapes: the factored form
+    the default path runs (bf16 table), and the upd form of the earlier call
+    site, held to their plain versions."""
+    from rodynrf_tpu_torch.ops import segsum as tseg
 
     gen = torch.Generator(device=tr.device).manual_seed(1)
+    lib = tseg._lib()
     results = []
     for name, rows, w, ct, R, dtype in segsum_cases(tr, gen):
-        split = segsum_split(rows, w, ct, R, dtype)
-        _log_split("segment_rows_sum", name, split)
-        u = (w[:, :, :, None] * ct[:, :, None, :]).to(dtype).reshape(rows.shape[0], -1)
-        M, C = u.shape
-        got = segment_rows_sum(rows, u, R)
-        want = segment_rows_sum_plain(rows, u, R)
+        M, nS, C = ct.shape
+        W = nS * 4 * C
+        u = tseg.factored_update(w, ct, dtype)
+        got32 = tseg.segment_rows_sum_factored(rows, w, ct, R, dtype, torch.float32)
+        got = tseg.segment_rows_sum_factored(rows, w, ct, R, dtype)
+        want = tseg.segment_rows_sum_factored_plain(rows, w, ct, R, dtype, torch.float32)
+        upd_err = float((tseg.segment_rows_sum(rows, u, R) - want).abs().max())
         torch.cuda.synchronize()
         scale = float(want.abs().max())
-        plain_ms = cuda_ms(lambda: segment_rows_sum_plain(rows, u, R))
+        scratch = tseg.new_scratch(lib, M, tseg.key_bits(R), W, ct.device)
+        buf = torch.empty_like(got)
+        split = split_ms(_stages(lambda bit: tseg._launch_factored(
+            lib, w, ct, R, dtype, dtype, rows=rows, stages=bit, scratch=scratch, out=buf)))
+        _log_split("segment_rows_sum", name, split)
+        new = lambda: tseg.segment_rows_sum_factored(rows, w, ct, R, dtype)
+
+        def old():  # the earlier call site: form u, 32-bit sort, upd form in f32, cast
+            k, p = stable_sort_int32(rows)
+            return tseg.sorted_segment_rows_sum(k, tseg.factored_update(w, ct, dtype), R,
+                                                p).to(dtype)
+
+        if not results:
+            log_activities(f"segsum {name} new", new)
+            log_activities(f"segsum {name} old", old)
+        ms, spread = median_ms(new)
+        device_ms, launches_new = device_profile(new)
         case = dict(
-            case=name, M=M, R=R, C=C, dtype=str(u.dtype).replace("torch.", ""),
-            max_abs_err=float((got - want).abs().max()), tol=KERNEL_RTOL * scale,
-            # the kernel time includes the stable sort of the rows
-            ms=cuda_ms(lambda: segment_rows_sum(rows, u, R)),
-            # the plain version is one index_add_ call: it is the yardstick too
-            plain_ms=plain_ms, library_ms=plain_ms,
+            case=name, M=M, R=R, C=W, nS=nS, dtype=str(dtype).replace("torch.", ""),
+            out=str(dtype).replace("torch.", ""),
+            max_abs_err=float((got32 - want).abs().max()), tol=KERNEL_RTOL * scale,
+            upd_form_max_abs_err=upd_err,
+            out_bit_exact=bool(torch.equal(got, got32.to(dtype))),
+            ms=ms, ms_spread=spread, device_ms=device_ms,
+            plain_ms=median_ms(
+                lambda: tseg.segment_rows_sum_factored_plain(rows, w, ct, R, dtype))[0],
+            # yardstick: index_add_ in f32 of the pre-formed u
+            library_ms=median_ms(lambda: tseg.segment_rows_sum_plain(rows, u, R))[0],
+            split=split, section=in_turns(old, new),
+            launches_new=launches_new, launches_old=device_profile(old)[1],
         )
-        case["section_ms"] = median_ms(lambda: segment_rows_sum(
-            rows, (w[:, :, :, None] * ct[:, :, None, :]).to(dtype).reshape(M, C), R).to(dtype))
-        case["split"] = split
-        case["bound_ms"], case["bound_by"] = segsum_bound_ms(M, R, C, u.element_size())
+        case["bound_ms"], case["bound_by"] = factored_bound_ms(M, R, nS, C, got.element_size())
         _report("segment_rows_sum", name, case, scale)
+        if not upd_err <= case["tol"]:
+            raise AssertionError(f"the upd-form kernel disagrees with its plain version at {name}")
         results.append(case)
-        del got, want, u, ct
+        del got, got32, want, u, ct, scratch, buf
     return results
 
 
@@ -373,18 +454,19 @@ def launches_per_step(S, layouts) -> dict:
 
 def counters():
     from rodynrf_tpu_torch.ops.coalesced import coalesce_table_grad
-    from rodynrf_tpu_torch.ops.segsum import sorted_segment_rows_sum
+    from rodynrf_tpu_torch.ops.segsum import segment_rows_sum_factored
 
     return {"coalesce": coalesce_table_grad.launches,
-            "segsum": sorted_segment_rows_sum.launches}
+            "segsum": segment_rows_sum_factored.launches}
 
 
 def reset_counters():
     from rodynrf_tpu_torch.ops.coalesced import coalesce_table_grad
-    from rodynrf_tpu_torch.ops.segsum import sorted_segment_rows_sum
+    from rodynrf_tpu_torch.ops import segsum
 
     coalesce_table_grad.launches = 0
-    sorted_segment_rows_sum.launches = 0
+    segsum.segment_rows_sum_factored.launches = 0
+    segsum.sorted_segment_rows_sum.launches = 0
 
 
 def run_steps(tr, n: int, label: str):
@@ -490,7 +572,7 @@ def cross_upsample(tr, smi: str):
     return record
 
 
-def profile_step(tr, top: int = 12):
+def profile_step(tr, top: int = 16):
     """One more train step under torch.profiler: device-busy share of the
     step's wall time and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -510,8 +592,14 @@ def profile_step(tr, top: int = 12):
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_launches} kernel launches")
     for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
         log(f"[profile]   {dev_us(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:110]}")
+    # the table-gradient kernels: the radix sort's, and csrc/segreduce.cuh's
+    table_grad = [e for e in kernels if any(
+        k in e.key for k in ("DeviceRadixSort", "segreduce::", "zero_and_walk", "fixup<"))]
+    tg_ms = sum(dev_us(e) for e in table_grad) / 1e3
+    log(f"[profile] table-gradient kernels (sort + reduction): {tg_ms:.2f} ms, "
+        f"{sum(e.count for e in table_grad)} launches")
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_launches": n_launches}
+            "device_launches": n_launches, "table_grad_device_ms": tg_ms}
 
 
 def small_input_reference():
@@ -591,8 +679,8 @@ def main() -> int:
     reports = cuda_build.build(KERNELS)
     log(f"[build] {time.time() - t0:.1f} s (compiled: {sorted(reports) or 'none, cached'})")
     for name, rep in reports.items():
-        regs = [ln.strip() for ln in rep.splitlines() if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: " + " | ".join(sorted(set(regs))))
+        for fn, info in ptxas_summary(rep):
+            log(f"[build] {name}: {fn}: {info}")
 
     # the two paths' trainers (the kernel checks draw their inputs from them)
     scene = make_synthetic_scene(**SCENE, ray_type=parse_cmd(" ".join(RECIPE)).ray_type)
@@ -616,12 +704,19 @@ def main() -> int:
     coalesce = check_coalesce(trainers["f32_strided"])
     segsum = check_segsum(trainers["default"])
     evals = {"static": 1 + 4 * trainers["default"].step_fn.S.optimize_poses, "dynamic": 4}
-    f32_ms = sum(c["ms"] * evals[c["case"].split()[0]] for c in coalesce)
-    default_ms = (sum(c["ms"] * evals["static"] for c in coalesce if c["case"].startswith("static"))
-                  + sum(c["ms"] * evals["dynamic"] for c in segsum))
+    f32_ms = sum(c["ms_f32"] * evals[c["case"].split()[0]] for c in coalesce)
+    default_cases = [c for c in coalesce if c["case"].startswith("static")] + segsum
+
+    def per_default_step(get):
+        return sum(get(c) * evals[c["case"].split()[0]] for c in default_cases)
+
+    default_ms = per_default_step(lambda c: c["ms"])
     log(f"[kernel] table-gradient kernels per train step (evals x shapes above): f32 strided "
-        f"{f32_ms:.2f} ms (coalesce only); default {default_ms:.2f} ms (static coalesce at its "
-        f"f32 cases + dynamic segment sum)")
+        f"{f32_ms:.2f} ms (coalesce, f32 out); default {default_ms:.2f} ms (static coalesce, "
+        f"bf16 out, + dynamic factored segment sum); the default step's table-gradient "
+        f"sections, device time: {per_default_step(lambda c: c['section']['old'][1]):.2f} ms "
+        f"by the earlier composition -> {per_default_step(lambda c: c['section']['new'][1]):.2f}"
+        f" ms ({smi})")
 
     if kernels_only:  # phases 1-3 alone, for measuring the kernels
         log(json.dumps({"kernel_cases": {"coalesce": coalesce, "segsum": segsum}}))
@@ -655,7 +750,9 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"], "case": main_case["case"], "cases": cases,
+            "library_ms": main_case["library_ms"], "device_ms": main_case["device_ms"],
+            "split": main_case["split"], "section": main_case["section"],
+            "case": main_case["case"], "cases": cases,
         }
 
     kernels = [

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface, at first use, into `build/rodynrf_tpu_torch/` under the
 repository root (listed in .gitignore). The library name carries a hash of
-the source and the flags, so an edited source never loads a stale build.
+the source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header never loads a stale build.
 Nothing here runs at import: the CPU tests import every module of the port
 on machines without nvcc.
 """
@@ -40,8 +41,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

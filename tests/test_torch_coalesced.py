@@ -229,3 +229,36 @@ def test_planes_sample_bf16_table():
     got = t.grad.float().numpy()
     _within_bf16_ulp(got, want_pallas, float(np.abs(want_pallas).max()))
     assert float(np.abs(got - want_auto).max()) <= 3e-2 * float(np.abs(want_auto).max())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_plain_output_dtype_is_the_f32_sum_rounded_once(out_dtype):
+    """The plain table gradient in the table dtype equals the f32 plain
+    version followed by the cast that planes_sample's backward used to make,
+    bit for bit."""
+    _, rows, w4, ct = _data(13, 2000, 131, 16)
+    args = (torch.from_numpy(rows), torch.from_numpy(w4), torch.from_numpy(ct), 131)
+    got = tco.coalesce_table_grad(*args, out_dtype)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, tco.coalesce_table_grad_plain(*args).to(out_dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_gradients_unchanged_on_the_cpu(dtype):
+    """planes_sample and merged_sample table gradients equal the earlier
+    composition (f32 sum, then a cast; for merged, u = w·ct rounded to the
+    table dtype first), bit for bit."""
+    from rodynrf_tpu_torch.ops import segsum as tseg
+
+    table, rows, w4, ct = _data(14, 1500, 97, 8)
+    t = torch.from_numpy(table).to(dtype).requires_grad_(True)
+    tr, tw, tct = torch.from_numpy(rows), torch.from_numpy(w4), torch.from_numpy(ct)
+    tco.planes_sample(t, tr, tw).backward(tct)
+    assert torch.equal(t.grad, tco.coalesce_table_grad_plain(tr, tw, tct, 97).to(dtype))
+
+    table, rows, w, ct = _merged_data(15)
+    _, gt, _ = _merged_port(table, rows, w, ct, dtype)
+    tw, tct = torch.from_numpy(w), torch.from_numpy(ct)
+    u = (tw[:, :, :, None] * tct[:, :, None, :]).to(dtype).view(rows.shape[0], -1)
+    want = tseg.segment_rows_sum_plain(torch.from_numpy(rows), u, table.shape[0]).to(dtype)
+    assert gt.dtype == dtype and torch.equal(gt, want)

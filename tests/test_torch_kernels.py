@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (coalesce, segment sum) against their plain
-PyTorch versions.
+"""The port's CUDA kernels (coalesce, segment sum in its upd and factored
+forms, the bit-limited radix sort) against their plain PyTorch versions.
 
 Imports torch and numpy only, so it runs on a machine with a card:
 
@@ -7,7 +7,9 @@ Imports torch and numpy only, so it runs on a machine with a card:
 
 Without a card the kernel cases skip (a CUDA kernel has no CPU mode); the
 CPU-route cases run everywhere. Tolerance: 1e-4 of max|plain| (f32 sums of
-up to thousands of terms, taken in another order).
+up to thousands of terms, taken in another order). A bf16 output is the f32
+sum rounded once, so it equals the f32 output `.to(torch.bfloat16)` bit for
+bit.
 """
 
 import subprocess
@@ -57,6 +59,16 @@ def _card():
     (50, 1000, 1, "uniform"),
     (4097, 500, 128, "hot"),
     (1, 7, 16, "uniform"),
+    # the narrow layout: 32 / (C / 4) entries per warp step
+    (3000, 257, 1, "hot"),
+    (5000, 33, 1, "one_row"),
+    (600, 4096, 1, "blocks"),
+    (3000, 257, 16, "hot"),
+    (5000, 33, 16, "one_row"),
+    (600, 4096, 16, "blocks"),
+    (3000, 257, 20, "hot"),
+    (600, 4096, 20, "blocks"),
+    (2000, 300, 6, "hot"),
 ])
 def test_coalesce_kernel_matches_plain(M, R, C, pattern):
     dev = _card()
@@ -64,19 +76,25 @@ def test_coalesce_kernel_matches_plain(M, R, C, pattern):
     before = tco.coalesce_table_grad.launches
     got = tco.coalesce_table_grad(rows, w4, ct, R)
     again = tco.coalesce_table_grad(rows, w4, ct, R)
+    got_bf16 = tco.coalesce_table_grad(rows, w4, ct, R, torch.bfloat16)
     torch.cuda.synchronize()
-    assert tco.coalesce_table_grad.launches == before + 2
+    assert tco.coalesce_table_grad.launches == before + 3
     want = tco.coalesce_table_grad_plain(rows, w4, ct, R)
     scale = float(want.abs().max())
+    assert got.dtype == torch.float32 and got.shape == (R, 4 * C)
     assert float((got - want).abs().max()) <= 1e-4 * scale
     assert torch.equal(got, again)  # deterministic: no atomics
+    assert got_bf16.dtype == torch.bfloat16
+    assert torch.equal(got_bf16.view(torch.int16), got.to(torch.bfloat16).view(torch.int16))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad_row", [-1, 50])
+@pytest.mark.parametrize("bad_row", [-1, 50, 64, 1000])
 def test_coalesce_kernel_asserts_on_rows_out_of_range(bad_row):
     """A row outside [0, R) trips the kernel's device-side assert, which
-    leaves the CUDA context unusable: run it in a process of its own."""
+    leaves the CUDA context unusable: run it in a process of its own. The
+    sort orders only the 6 bits that R - 1 = 49 needs, so 64 and 1000 sort
+    among the small rows: the walk checks every key it reads."""
     _card()
     code = (
         "import torch\n"
@@ -163,10 +181,11 @@ def test_segsum_kernel_matches_plain(M, R, C, pattern, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad_row", [-1, 51])
+@pytest.mark.parametrize("bad_row", [-1, 51, 64, 1000])
 def test_segsum_kernel_asserts_on_rows_out_of_range(bad_row):
     """An index outside [0, n_rows] (n_rows = 50 is the trash bin) trips the
-    kernel's device-side assert: run it in a process of its own."""
+    kernel's device-side assert: run it in a process of its own. 64 and 1000
+    lie past the 6 bits the sort orders."""
     _card()
     code = (
         "import torch\n"
@@ -206,3 +225,146 @@ def test_segsum_cpu_route_takes_the_plain_version_and_counts_nothing():
     got = tseg.segment_rows_sum(idx, upd, 40)
     assert tseg.sorted_segment_rows_sum.launches == before
     np.testing.assert_array_equal(got.numpy(), tseg.segment_rows_sum_plain(idx, upd, 40).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_segsum_kernel_bf16_output_is_the_f32_output_rounded(dtype):
+    dev = _card()
+    idx, upd = (t.to(dev) for t in _segsum_inputs(5, 3000, 257, 240, "hot", dtype))
+    got = tseg.segment_rows_sum(idx, upd, 257)
+    got_bf16 = tseg.segment_rows_sum(idx, upd, 257, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got_bf16.dtype == torch.bfloat16 and got_bf16.shape == (257, 240)
+    assert torch.equal(got_bf16.view(torch.int16), got.to(torch.bfloat16).view(torch.int16))
+
+
+def _factored_inputs(seed, M, R, nS, C, pattern):
+    rows, _, _ = _inputs(seed, M, R, 1, pattern)
+    if pattern == "trash":
+        rows[::3] = R
+    rng = np.random.default_rng(seed + 1)
+    w = rng.uniform(0, 1, (M, nS, 4)).astype(np.float32)
+    ct = rng.standard_normal((M, nS, C)).astype(np.float32)
+    return torch.from_numpy(rows), torch.from_numpy(w), torch.from_numpy(ct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,R,C,pattern", [
+    (3000, 257, 80, "hot"),
+    (3000, 257, 20, "hot"),
+    (5000, 33, 20, "one_row"),
+    (600, 4096, 80, "blocks"),
+    (700, 90, 20, "trash"),
+    (1, 7, 20, "uniform"),
+    (2000, 300, 6, "hot"),  # 2 channels a slot
+    (900, 50, 3, "blocks"),  # 1 channel a slot
+])
+def test_segsum_factored_kernel_matches_plain(M, R, C, pattern, dtype):
+    """The factored form (products rounded to the table dtype in registers)
+    against its plain version: the f32 output within 1e-4 of scale, the
+    table-dtype output the f32 output rounded, bit for bit; deterministic."""
+    dev = _card()
+    nS = 3
+    idx, w, ct = (t.to(dev) for t in _factored_inputs(M + C, M, R, nS, C, pattern))
+    before = tseg.segment_rows_sum_factored.launches
+    got32 = tseg.segment_rows_sum_factored(idx, w, ct, R, dtype, torch.float32)
+    again = tseg.segment_rows_sum_factored(idx, w, ct, R, dtype, torch.float32)
+    got = tseg.segment_rows_sum_factored(idx, w, ct, R, dtype)
+    torch.cuda.synchronize()
+    assert tseg.segment_rows_sum_factored.launches == before + 3
+    want = tseg.segment_rows_sum_factored_plain(idx, w, ct, R, dtype, torch.float32)
+    scale = float(want.abs().max())
+    assert got32.shape == (R, nS * 4 * C) and got.dtype == dtype
+    assert float((got32 - want).abs().max()) <= 1e-4 * scale
+    assert torch.equal(got32, again)
+    assert torch.equal(got, got32.to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_segsum_factored_kernel_equals_upd_form_bit_for_bit(dtype):
+    """At C = 80, nS = 3 (the merged o0 width) both forms walk one entry a
+    step in chunks of 64, so each output element is summed in the same
+    order: the factored form equals forming u, the upd form in f32 and
+    the cast, bit for bit."""
+    dev = _card()
+    idx, w, ct = (t.to(dev) for t in _factored_inputs(9, 4000, 300, 3, 80, "hot"))
+    got = tseg.segment_rows_sum_factored(idx, w, ct, 300, dtype)
+    u = tseg.factored_update(w, ct, dtype)
+    old = tseg.segment_rows_sum(idx, u, 300).to(dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16) if dtype == torch.bfloat16 else got,
+                       old.view(torch.int16) if dtype == torch.bfloat16 else old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,pattern", [
+    (1, "uniform"), (256, "uniform"), (257, "uniform"), (2 ** 17, "uniform"),
+    (2 ** 17 + 1, "hot"), (1000, "equal"),
+])
+def test_bit_limited_sort_is_the_stable_sort(R, pattern):
+    """sort_rows sorts only the bits R - 1 needs (or R, with a trash bin),
+    with an int32 iota as values: keys and permutation equal torch's stable
+    sort, at R = 2^k and 2^k + 1, R = 1 and all keys equal; the kernels
+    built on it match their plain versions there."""
+    dev = _card()
+    M = 5000
+    rows, w4, ct = _inputs(R, M, R, 16, "hot" if pattern == "hot" else "uniform")
+    if pattern == "equal":
+        rows[:] = R - 1
+    rows, w4, ct = (torch.from_numpy(a).to(dev) for a in (rows, w4, ct))
+    for lib, max_key in ((tco._lib(), R - 1), (tseg._lib(), R)):
+        keys, perm = tseg.sort_rows(lib, rows, max_key)
+        want_keys, want_perm = torch.sort(rows, stable=True)
+        assert keys.dtype == perm.dtype == torch.int32
+        assert torch.equal(keys, want_keys) and torch.equal(perm.long(), want_perm)
+    got = tco.coalesce_table_grad(rows, w4, ct, R)
+    want = tco.coalesce_table_grad_plain(rows, w4, ct, R)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    got = tseg.segment_rows_sum(rows, ct, R)
+    want = tseg.segment_rows_sum_plain(rows, ct, R)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad_row", [-1, 51, 64])
+def test_segsum_factored_kernel_asserts_on_rows_out_of_range(bad_row):
+    _card()
+    code = (
+        "import torch\n"
+        "from rodynrf_tpu_torch.ops.segsum import segment_rows_sum_factored\n"
+        "idx = torch.arange(700, device='cuda', dtype=torch.int32) % 50\n"
+        f"idx[::7] = {bad_row}\n"
+        "w = torch.rand(700, 3, 4, device='cuda')\n"
+        "ct = torch.randn(700, 3, 20, device='cuda')\n"
+        "segment_rows_sum_factored(idx, w, ct, 50, torch.bfloat16)\n"
+        "torch.cuda.synchronize()\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode != 0
+    assert "assert" in (proc.stdout + proc.stderr).lower()
+
+
+@pytest.mark.cuda
+def test_segsum_factored_kernel_edge_cases_and_refusals():
+    dev = _card()
+    before = tseg.segment_rows_sum_factored.launches
+    got = tseg.segment_rows_sum_factored(torch.empty(0, dtype=torch.int32, device=dev),
+                                         torch.empty(0, 3, 4, device=dev),
+                                         torch.empty(0, 3, 20, device=dev), 30, torch.bfloat16)
+    assert got.shape == (30, 240) and got.dtype == torch.bfloat16 and not bool(got.any())
+    assert tseg.segment_rows_sum_factored.launches == before
+    idx = torch.zeros(64, dtype=torch.int32, device=dev)
+    w = torch.rand(64, 3, 4, device=dev)
+    with pytest.raises(ValueError):
+        tseg.segment_rows_sum_factored(idx, w, torch.randn(64, 6, 3, device=dev).transpose(1, 2),
+                                       4, torch.float32)
+    with pytest.raises(TypeError):
+        tseg.segment_rows_sum_factored(idx, w.double(), torch.randn(64, 3, 8, device=dev).double(),
+                                       4, torch.float32)
+    with pytest.raises(TypeError):
+        tseg.segment_rows_sum_factored(idx, w, torch.randn(64, 3, 8, device=dev), 4,
+                                       torch.float16)

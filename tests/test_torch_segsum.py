@@ -82,3 +82,36 @@ def test_cpu_route_checks_inputs_and_counts_nothing():
     got = tseg.segment_rows_sum(idx, upd, 6)
     np.testing.assert_array_equal(got[2].numpy(), (upd[1] + upd[2]).numpy())
     assert tseg.sorted_segment_rows_sum.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_factored_plain_matches_composition_and_jax(dtype):
+    """The factored form's plain version (u = w·ct rounded to the table dtype,
+    summed in f32, rounded once) equals the earlier composition of u, the
+    upd form and a cast bit for bit, and the JAX Pallas kernel (interpret
+    mode) on the same u within 1e-5 of scale before the cast."""
+    M, R, nS, C = 1200, 150, 3, 8
+    rng = np.random.default_rng(21)
+    idx = _idx("trash", M, R, rng)
+    w = rng.uniform(0, 1, (M, nS, 4)).astype(np.float32)
+    ct = rng.standard_normal((M, nS, C)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    ti, tw, tct = torch.from_numpy(idx), torch.from_numpy(w), torch.from_numpy(ct)
+    got = tseg.segment_rows_sum_factored(ti, tw, tct, R, tdt)
+    u = (tw[:, :, :, None] * tct[:, :, None, :]).to(tdt).reshape(M, -1)
+    assert got.dtype == tdt and got.shape == (R, nS * 4 * C)
+    assert torch.equal(got, tseg.segment_rows_sum(ti, u, R).to(tdt))
+    got32 = tseg.segment_rows_sum_factored(ti, tw, tct, R, tdt, torch.float32)
+    assert torch.equal(got, got32.to(tdt))
+    ju = (jnp.asarray(w)[..., None] * jnp.asarray(ct)[:, :, None, :]).astype(dtype)
+    want = np.asarray(jsegsum(jnp.asarray(idx), ju.reshape(M, -1), R, interpret=True))
+    assert float(np.abs(got32.numpy() - want).max()) <= 1e-5 * float(np.abs(want).max())
+
+
+def test_output_dtype_of_the_upd_form():
+    rng = np.random.default_rng(22)
+    idx = torch.from_numpy(_idx("hot", 900, 70, rng))
+    upd = torch.from_numpy(rng.standard_normal((900, 16)).astype(np.float32))
+    got = tseg.segment_rows_sum(idx, upd, 70, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, tseg.segment_rows_sum(idx, upd, 70).to(torch.bfloat16))
