@@ -114,7 +114,7 @@ def device_profile(fn, reps: int = 20):
 
     for _ in range(3):
         fn()
-    for _ in range(3):  # a session now and then records no device activity: take the next
+    for _ in range(3):  # a profiler run now and then records no device activity: redo it
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
