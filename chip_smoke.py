@@ -38,8 +38,21 @@ result):
   5. a small-input reference: the TINY step on the card against the same
      step on the CPU (the plain versions the CPU tests hold to the JAX
      package): f32 strided, bf16 auto, and bf16 across the TINY upsample;
-  6. a `main_path` JSON line per path, one JSON line of kernels, the
-     nvidia-smi line, and the result line.
+  7. the CLI at full width: a synthetic 12-frame scene written in the
+     Nvidia on-disk layout at 540×960 with the port's PNG writer, then
+     `rodynrf_tpu_torch.cli.main` of configs/Nvidia_no_poses.txt at 300³
+     with --downsample_train 2 (every resize of the loader to 270×480),
+     3 steps, checkpoints, the evaluation of all 12 frames; then
+     --render_only from the saved .npz, which must give the same per-frame
+     PSNRs, and one step resumed from it. Kernel launches counted over the
+     CLI's training. A `render` and a `cli` JSON line;
+  8. the golden gates on the card: the first-step gradients of
+     golden/tiny.txt on the committed fixture against the reference's
+     (golden/out/grads_ref.npz, 72 tensors, relative error <= 1e-3), and
+     the reference's final .th pair rendered through the port against the
+     reference's own PNGs (>= 50 dB each);
+  6. (printed last, after 7 and 8) a `main_path` JSON line per path, one
+     JSON line of kernels, the nvidia-smi line, and the result line.
 
 `python3 chip_smoke.py --kernels-only` runs phases 1-3 alone and prints the
 cases as one `kernel_cases` JSON line.
@@ -69,6 +82,10 @@ RECIPE = [
 CONFIG_F32 = RECIPE + ["--bf16", "0", "--vm_layout", "strided"]
 CONFIG_DEFAULT = RECIPE  # --bf16 1 --vm_layout auto: the recipe's defaults
 SCENE = dict(T=12, H=270, W=480)
+CLI_SCENE = dict(T=12, H=540, W=960)  # on disk; --downsample_train 2 -> 270×480
+CLI_STEPS = 3
+CLI_VOXELS = "27000000"  # the 300³ grid, as phases 4-4c
+GOLDEN_GRAD_RTOL, GOLDEN_MIN_PSNR = 1e-3, 50.0
 WARM_STEPS, TIMED_STEPS = 2, 5
 KERNEL_RTOL = 1e-4  # of max|plain|: f32 sums of ≤ a few hundred terms, another order
 KERNELS = ("coalesce", "segsum")
@@ -658,6 +675,198 @@ def small_input_reference():
     return out
 
 
+def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cuda"):
+    """Phase 7: the CLI end to end on a scene written to disk. Returns the
+    CLI run's main-path record (launch counts) after printing the `render`
+    and `cli` lines. (`device` and the module's CLI_* sizes let the phase be
+    rehearsed on the CPU at a small size.)"""
+    import shutil
+    import tempfile
+
+    from rodynrf_tpu_torch.cli import main as cli_main
+    from rodynrf_tpu_torch.data.video_dataset import load_scene
+    from rodynrf_tpu_torch.testing import write_video_scene
+    from rodynrf_tpu_torch.train import Trainer, config_parser
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        t0 = time.time()
+        write_video_scene(str(root / "scene"), **CLI_SCENE)
+        write_s = time.time() - t0
+        argv = [RECIPE[0], RECIPE[1], "--datadir", str(root / "scene"),
+                "--basedir", str(root / "log"), "--expname", "cli",
+                "--downsample_train", "2", "--N_voxel_init", CLI_VOXELS,
+                "--n_iters", str(CLI_STEPS), "--no_tensorboard", "1", "--render_test", "1",
+                "--render_path", "0", "--N_vis", "0", "--progress_refresh_rate", "1"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.time()
+        rep = cli_main(argv, device)
+        cli_s = time.time() - t0
+        launches = counters()
+        peak_cli = torch.cuda.max_memory_allocated()
+        want = {k: v * CLI_STEPS for k, v in per_step.items()}
+        if launches != want:
+            raise AssertionError(f"CLI run: kernel launches {launches} != {want}")
+        if not all(math.isfinite(x) for x in rep["losses"]) or len(rep["losses"]) != CLI_STEPS:
+            raise AssertionError(f"CLI run: losses {rep['losses']}")
+        if len(rep["psnrs"]) != CLI_SCENE["T"] or not all(
+                math.isfinite(p) for p in rep["psnrs"]):
+            raise AssertionError(f"CLI run: evaluation PSNRs {rep['psnrs']}")
+        for f in ("cli.npz", "cli.th", "cli_static.th", "imgs_test_all/mean.txt",
+                  "imgs_test_all/011.png", "imgs_test_all_static/rgbd/011.npy"):
+            if not (root / "log" / "cli" / f).is_file():
+                raise AssertionError(f"CLI run wrote no {f}")
+        log(f"[cli] scene written in {write_s:.1f} s; main: {cli_s:.1f} s (loader "
+            f"{rep['loader_s']:.2f} s, {CLI_STEPS} steps {rep['train_s']:.2f} s, save "
+            f"{rep['save_s']:.2f} s, evaluation {rep['eval_s']:.2f} s), launches {launches}, "
+            f"losses {rep['losses']}, PSNRs {[round(float(p), 4) for p in rep['psnrs']]}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        rrep = cli_main(argv + ["--render_only", "1", "--ckpt", rep["ckpt"]], device)
+        render_s = time.time() - t0
+        peak_render = torch.cuda.max_memory_allocated()
+        if rrep["psnrs"] != rep["psnrs"]:
+            raise AssertionError(f"render_only PSNRs {rrep['psnrs']} != the final evaluation's "
+                                 f"{rep['psnrs']}")
+        chunk_profile = (profile_render_chunk(rep["ckpt"], CLI_SCENE["H"] // 2,
+                                              CLI_SCENE["W"] // 2, n_samples)
+                         if device == "cuda" else {})
+
+        args = config_parser(argv + ["--ckpt", rep["ckpt"], "--n_iters", str(CLI_STEPS + 1)])
+        t0 = time.time()
+        tr = Trainer(args, load_scene(args), device=device)
+        resume_s = time.time() - t0
+        if tr.iteration != CLI_STEPS:
+            raise AssertionError(f"resumed at iteration {tr.iteration}, not {CLI_STEPS}")
+        resumed_loss = float(tr.run_step()["total_loss"])
+        if not math.isfinite(resumed_loss):
+            raise AssertionError(f"the resumed step's loss is {resumed_loss}")
+        del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    H, W = CLI_SCENE["H"] // 2, CLI_SCENE["W"] // 2
+    frame_ms = sorted(1e3 * t for t in rrep["frame_s"])
+    med = frame_ms[len(frame_ms) // 2]
+    render = {
+        "frames": len(frame_ms), "H": H, "W": W, "grid": list(grid), "n_samples": n_samples,
+        "chunk": 8192, "layouts": "bf16, static strided, dynamic merged (eval budget)",
+        "ms_per_frame_median": med, "rays_per_s": H * W / (med / 1e3),
+        "frame_ms": [1e3 * t for t in rrep["frame_s"]], "peak_gib": peak_render / 2**30,
+        "render_only_s": render_s, "chunk_profile": chunk_profile, "card": smi,
+    }
+    cli = {
+        "scene_write_s": write_s, "loader_s": rep["loader_s"], "train_s": rep["train_s"],
+        "steps": CLI_STEPS, "losses": rep["losses"], "save_s": rep["save_s"],
+        "ckpt_bytes": rep["ckpt_bytes"], "load_s": rrep["load_s"], "eval_s": rep["eval_s"],
+        "main_s": cli_s, "psnrs": rep["psnrs"], "render_only_psnrs_equal": True,
+        "resume_s": resume_s, "resumed_first_loss": resumed_loss,
+        "peak_gib_cli_run": peak_cli / 2**30, "launches": launches, "card": smi,
+    }
+    log(json.dumps({"render": render}))
+    log(json.dumps({"cli": cli}))
+    return {"path": "cli", "launches": launches, "launches_per_step": per_step}
+
+
+def profile_render_chunk(ckpt: str, H: int, W: int, n_samples: int, top: int = 12):
+    """One 8192-ray chunk of the CLI checkpoint's render under
+    torch.profiler (after a warm call): its wall time, device-busy time and
+    launches, and the kernels that take the most device time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from rodynrf_tpu_torch.core.se3 import pose_to_mtx
+    from rodynrf_tpu_torch.render.renderer import make_chunk_renderer, rays_for_view
+    from rodynrf_tpu_torch.train.checkpoints import load_checkpoint
+    from rodynrf_tpu_torch.train.convert import params_from_numpy
+
+    params, st, dy, aabb, extra = load_checkpoint(ckpt)
+    pose = pose_to_mtx(torch.from_numpy(np.asarray(params["pose"])))[0].numpy()
+    p = params_from_numpy({k: params[k] for k in ("static", "dynamic")}, "cuda")
+    aabb_t = torch.as_tensor(aabb, device="cuda")
+    chunk = make_chunk_renderer(st, dy, "ndc", n_samples, st.step_size(aabb))
+    rays = rays_for_view(pose, extra["focal"], H, W, "ndc", device="cuda")[:8192]
+    ts = torch.zeros(rays.shape[0], device="cuda")
+    packs = chunk.pack(p)
+    chunk(p, packs, aabb_t, rays, ts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        chunk(p, packs, aabb_t, rays, ts)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0) or 0.0
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    log(f"[render] one 8192-ray chunk under the profiler: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms, {sum(e.count for e in kernels)} device launches")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
+        log(f"[render]   {dev_us(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:110]}")
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_launches": sum(e.count for e in kernels)}
+
+
+def golden_gates(smi: str, device: str = "cuda"):
+    """Phase 8: the reference's first-step gradients and its .th renders,
+    on the card."""
+    import numpy as np
+
+    from rodynrf_tpu_torch.cli import _load_reference_th_pair
+    from rodynrf_tpu_torch.data.imageio import read_png
+    from rodynrf_tpu_torch.eval.metrics import psnr
+    from rodynrf_tpu_torch.render.renderer import make_chunk_renderer, render_image
+    from rodynrf_tpu_torch.testing import golden_trainer
+    from rodynrf_tpu_torch.train.checkpoints import dynamic_state_dict, static_state_dict
+    from rodynrf_tpu_torch.train.convert import params_from_numpy
+
+    repo = Path(__file__).resolve().parent
+    out = repo / "golden" / "out"
+    tr, scene = golden_trainer(str(repo), device=device)
+    rec = np.load(out / "ref_record.npz")
+    sc = {"iteration": 0, "focal_fixed": tr.focal_fixed, **tr.schedule.scalars(0)}
+    grads, _ = tr.step_fn.grads_and_metrics(
+        tr.params, tr.aabb, tr.data, torch.as_tensor(rec["ray_idx"][0]).to(device),
+        torch.as_tensor(rec["ray_idx_rand"][0]).to(device), tr.gen, sc)
+    ours = {f"static/{k}": v for k, v in static_state_dict(grads["static"], tr.static_cfg).items()}
+    ours.update({f"dynamic/{k}": v
+                 for k, v in dynamic_state_dict(grads["dynamic"], tr.dynamic_cfg).items()})
+    ours["pose"] = grads["pose"].cpu().numpy()
+    ours["fov"] = grads["fov"].cpu().numpy()
+    ref = np.load(out / "grads_ref.npz")
+    rel = {n: float(np.abs(ref[n] - ours[n]).max() / (np.abs(ref[n]).max() + 1e-12))
+           for n in ref.files}
+    worst = max(rel, key=rel.get)
+    log(f"[golden] first-step gradients on the card: {len(rel)} tensors, worst relative "
+        f"error {rel[worst]:.3e} ({worst}), limit {GOLDEN_GRAD_RTOL:g}")
+    if len(rel) != 72 or rel[worst] > GOLDEN_GRAD_RTOL:
+        raise AssertionError(f"golden gradients: {len(rel)} tensors, worst {worst} "
+                             f"{rel[worst]:.3e}")
+
+    exp = out / "ref_log" / "golden_tiny"
+    params, st_cfg, dy_cfg, aabb, poses, focal, _ = _load_reference_th_pair(
+        str(exp / "golden_tiny.th"))
+    render_chunk = make_chunk_renderer(st_cfg, dy_cfg, "ndc", st_cfg.n_samples(aabb),
+                                       st_cfg.step_size(aabb))
+    params = params_from_numpy(params, device)
+    aabb_t = torch.as_tensor(aabb, device=device)
+    W, H = scene.img_wh
+    ts = np.linspace(-1.0, 1.0, scene.n_frames)
+    psnrs = []
+    for i in range(scene.n_frames):
+        maps = render_image(render_chunk, params, aabb_t, poses[i], focal, float(ts[i]), H, W,
+                            "ndc", chunk=1024)
+        ref_png = read_png(str(exp / "imgs_test_all" / f"{i:03d}.png")).astype(np.float32) / 255.0
+        psnrs.append(float(psnr(maps["rgb"], ref_png)))
+    log(f"[golden] the reference's final .th rendered by the port on the card against its own "
+        f"PNGs: {[round(p, 3) for p in psnrs]} dB (limit {GOLDEN_MIN_PSNR:g}) ({smi})")
+    if min(psnrs) < GOLDEN_MIN_PSNR:
+        raise AssertionError(f"golden .th render: {psnrs} dB")
+    return {"grad_worst_rel": rel[worst], "grad_worst": worst, "th_render_psnr": psnrs}
+
+
 def main() -> int:
     t_start = time.time()
     kernels_only = "--kernels-only" in sys.argv[1:]
@@ -734,6 +943,15 @@ def main() -> int:
     # 5. small-input reference
     tiny_worst = small_input_reference()
     log(json.dumps({"tiny_worst_rel": tiny_worst}))
+
+    # 7. the CLI at full width (same recipe and grid as the default path)
+    default = records[1]
+    records.append(drive_cli(smi, default["launches_per_step"], default["grid"],
+                             default["n_samples"]))
+    torch.cuda.empty_cache()
+
+    # 8. the golden gates on the card
+    log(json.dumps({"golden": golden_gates(smi)}))
 
     # 6. report
     def launches(kernel):

@@ -60,3 +60,23 @@ def ndc_rays_blender(H: int, W: int, focal, near: float, rays_o, rays_d):
     d2 = -2.0 * near / rays_o[..., 2]
 
     return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)
+
+
+def get_ray_directions_blender(H: int, W: int, focal, center=None, device=None):
+    """Full-image camera-space dirs grid [H, W, 3] (reference:
+    ray_utils.py:93-112)."""
+    jj, ii = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=device),
+                            torch.arange(W, dtype=torch.float32, device=device), indexing="ij")
+    ii, jj = ii + 0.5, jj + 0.5
+    cent = center if center is not None else [W / 2, H / 2]
+    return torch.stack(
+        [(ii - cent[0]) / focal[0], -(jj - cent[1]) / focal[1], -torch.ones_like(ii)], dim=-1
+    )
+
+
+def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
+    """Full-image rays from one c2w [3, 4] (reference: ray_utils.py:143-164).
+    Returns (rays_o, rays_d), both [H·W, 3]."""
+    rays_d = directions @ c2w[:3, :3].T
+    rays_o = c2w[:3, 3].expand(rays_d.shape)
+    return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)

@@ -13,7 +13,12 @@ from __future__ import annotations
 import torch
 
 from ..core.encoding import positional_encoding
-from ..ops.fused_vm import pack_vm, sample_vm_fused
+from ..ops.fused_vm import (
+    EVAL_MERGED_BYTES_LIMIT,
+    MERGED_BYTES_LIMIT,
+    pack_vm,
+    sample_vm_fused,
+)
 from ..ops.regularizers import tv_loss_vm, vm_outer_l1
 from .config import FieldConfig
 from .mlps import init_shading, linear, linear_init, mlp_apply, mlp_init, uniform
@@ -76,11 +81,12 @@ def _head_inputs(vm_feats, xyz_n, t):
     )
 
 
-def pack_tables(params, cfg: FieldConfig):
+def pack_tables(params, cfg: FieldConfig, eval_mode: bool = False):
     """Fused gather tables for the dynamic field's three grids (density,
     blending, appearance share the warped sample coordinates), in the
-    config's gather dtype and layout ('auto' picks by table bytes). Build
-    once per step and share across passes."""
+    config's gather dtype and layout ('auto' picks by table bytes; with
+    `eval_mode`, the render path's larger budget). Build once per step (or
+    per rendered frame) and share across passes."""
     return pack_vm(
         [
             (params["density_plane"], params["density_line"]),
@@ -90,6 +96,7 @@ def pack_tables(params, cfg: FieldConfig):
         strides=MULTISCALE_STRIDES,
         gather_dtype=cfg.gather_dtype,
         layout=cfg.vm_layout,
+        merged_bytes_limit=EVAL_MERGED_BYTES_LIMIT if eval_mode else MERGED_BYTES_LIMIT,
     )
 
 

@@ -44,6 +44,9 @@ from .grid_sample import MAT_MODE, VEC_MODE, _strided_len
 # packages): it admits the bf16 300³ dynamic field (~0.95 GB) and rejects the
 # f32 one (~1.9 GB).
 MERGED_BYTES_LIMIT = 1_200_000_000
+# The render path keeps no backward residuals, so its 'auto' choice admits
+# larger merged tables (the JAX package's EVAL_MERGED_BYTES_LIMIT).
+EVAL_MERGED_BYTES_LIMIT = 6_000_000_000
 
 Grid = Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]  # (planes, lines)
 
@@ -233,15 +236,16 @@ def merge_strided_tables(tables: Sequence[torch.Tensor], plan) -> torch.Tensor:
     return _MergeStridedTables.apply(plan, *tables)
 
 
-def resolve_layout(grids, strides, gather_dtype, layout: str) -> str:
+def resolve_layout(grids, strides, gather_dtype, layout: str,
+                   merged_bytes_limit: int = MERGED_BYTES_LIMIT) -> str:
     """'auto' -> 'merged' when there are several strides and the merged
-    tables fit MERGED_BYTES_LIMIT, else 'strided' (the JAX package's rule,
+    tables fit `merged_bytes_limit`, else 'strided' (the JAX package's rule,
     rodynrf_tpu/ops/fused_vm.py:303-310)."""
     if layout == "auto":
         return (
             "merged"
             if len(strides) > 1
-            and merged_table_bytes(grids, strides, gather_dtype) <= MERGED_BYTES_LIMIT
+            and merged_table_bytes(grids, strides, gather_dtype) <= merged_bytes_limit
             else "strided"
         )
     if layout not in ("strided", "merged"):
@@ -254,16 +258,18 @@ def pack_vm(
     strides: Sequence[int] = (1,),
     gather_dtype: Optional[torch.dtype] = None,
     layout: str = "auto",
+    merged_bytes_limit: int = MERGED_BYTES_LIMIT,
 ) -> PackedVM:
     """Build the fused tables for one or more VM grids sampled at shared xyz.
 
     grids: list of (planes, lines), planes[i] [C_g_i, H_i, W_i] and lines[i]
     [C_g_i, L_i] in MAT_MODE/VEC_MODE orientation order, one spatial
     resolution for all grids. gather_dtype: torch.bfloat16 or None (f32).
-    layout: 'strided', 'merged' or 'auto' (`resolve_layout`).
+    layout: 'strided', 'merged' or 'auto' (`resolve_layout`, with
+    `merged_bytes_limit`).
     """
     strides = tuple(strides)
-    if resolve_layout(grids, strides, gather_dtype, layout) == "merged":
+    if resolve_layout(grids, strides, gather_dtype, layout, merged_bytes_limit) == "merged":
         return _pack_vm_merged(grids, strides, gather_dtype)
     tables, line_tables = [], []
     dims, line_dims, row_offsets, c_splits = [], [], [], []

@@ -24,9 +24,11 @@ def params_from_numpy(tree, device):
 
 def params_to_numpy(tree):
     """The port's parameters (or a gradient tree of the same shape) ->
-    nested dicts/lists of numpy arrays."""
+    nested dicts/lists of numpy arrays (numpy leaves pass through)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
+    if isinstance(tree, np.ndarray):
+        return tree
     return tree.detach().cpu().numpy()

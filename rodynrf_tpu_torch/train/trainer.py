@@ -1,20 +1,24 @@
 """Trainer: owns params, optimizers, schedules and the train step (port of
-rodynrf_tpu/train/trainer.py, `__init__`, `run_step` and `_upsample`;
-reference train.py:824-2658).
+rodynrf_tpu/train/trainer.py: `__init__`, `run_step`, `_upsample`, `train`,
+`save_full` and `_resume`; reference train.py:824-2658).
 
 Runs the JAX package's default recipe: bf16 or f32 gather tables, the
 strided or merged table layout ('auto' picks per field by table bytes), and
 the voxel upsample at every `upsamp_list` iteration, after which the layout
-is chosen anew. What the port lacks is refused with NotImplementedError
-rather than ignored: batched passes, rematerialization, gradient
-accumulation, train-time and appearance compaction, sharded grids, the
-table-gradient routes other than the kernels, more than one device, and
-resuming.
+is chosen anew. Resumes from a native checkpoint (`--ckpt`): a full one
+(`save_full`) continues the exact trajectory, a plain one restarts the
+optimizers and replays the schedule. What the port lacks is refused with
+NotImplementedError rather than ignored, naming the ROADMAP.md queue 1 item
+that brings it: batched passes, rematerialization, gradient accumulation,
+train-time and appearance compaction, occupancy-mask updates, sharded
+grids, the table-gradient routes other than the kernels, and more than one
+device.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -23,6 +27,7 @@ from ..data.scene import SceneData, default_focal
 from ..fields import FieldConfig, cal_n_samples, n_to_reso
 from ..fields import dynamic as dyn_field
 from ..fields import static as stat_field
+from .checkpoints import load_checkpoint, save_checkpoint
 from .convert import params_from_numpy, params_to_numpy
 from .schedule import LrSchedule, PermutationSampler, n_voxel_schedule
 from .step import (
@@ -48,33 +53,43 @@ def init_pose_params(scene: SceneData, n_cams: int) -> np.ndarray:
     return init
 
 
+# ROADMAP.md queue 1 items that bring what the port refuses
+COMPACTION = "ROADMAP.md queue 1, item 2: compaction"
+MESH_LPIPS = "ROADMAP.md queue 1, item 3: mesh export and LPIPS"
+PARALLELISM = "ROADMAP.md queue 1, item 4: parallelism"
+
+
+def not_ported(what: str, item: str = "ROADMAP.md"):
+    raise NotImplementedError(f"{what} is not ported to rodynrf_tpu_torch yet ({item})")
+
+
 def _refuse_unported(args, device: torch.device):
     """NotImplementedError for every option the port does not implement."""
-    def no(what):
-        raise NotImplementedError(f"{what} is not ported to rodynrf_tpu_torch yet (ROADMAP.md)")
-
     if int(getattr(args, "fused_passes", 0)):
-        no("--fused_passes 1")
+        not_ported("--fused_passes 1", PARALLELISM)
     if getattr(args, "remat", "auto") == "on":
-        no("--remat on")
+        not_ported("--remat on", PARALLELISM)
     if int(getattr(args, "grad_accum", 0)) > 1:
-        no("--grad_accum > 1")
+        not_ported("--grad_accum > 1", PARALLELISM)
     if int(getattr(args, "compact_train", 0)):
-        no("--compact_train 1")
+        not_ported("--compact_train 1", COMPACTION)
     if float(getattr(args, "app_frac", 0.0)) > 0.0:
-        no("--app_frac > 0 (appearance compaction)")
+        not_ported("--app_frac > 0 (appearance compaction)", COMPACTION)
+    updates = [i for i in (getattr(args, "update_AlphaMask_list", None) or [])
+               if 0 < int(i) <= int(args.n_iters)]
+    if updates:
+        not_ported(f"the occupancy-mask update at iteration {updates[0]} "
+                   "(update_AlphaMask_list)", COMPACTION)
     if int(getattr(args, "shard_grids", 0)):
-        no("--shard_grids 1")
+        not_ported("--shard_grids 1", PARALLELISM)
     if getattr(args, "grad_impl", "autodiff") != "autodiff":
-        no(f"--grad_impl {args.grad_impl} (the port's table gradients are the coalesce "
-           "and segment-sum kernels)")
-    if getattr(args, "ckpt", None):
-        no("resuming from --ckpt")
+        not_ported(f"--grad_impl {args.grad_impl} (the port's table gradients are the "
+                   "coalesce and segment-sum kernels)")
     n_dev = int(getattr(args, "n_devices", 0))
     if n_dev == 0 and device.type == "cuda":
         n_dev = torch.cuda.device_count()
     if n_dev > 1:
-        no(f"data parallelism over {n_dev} devices; pass --n_devices 1")
+        not_ported(f"data parallelism over {n_dev} devices; pass --n_devices 1", PARALLELISM)
 
 
 class Trainer:
@@ -159,7 +174,78 @@ class Trainer:
         }
         self.focal_fixed = float(scene.focal if scene.focal is not None else default_focal(W, H))
         self.iteration = 0
+        # golden-comparison hook: callable(iteration) -> (ray_idx, ray_idx_rand)
+        # replacing the permutation samplers with an externally recorded stream
+        self.sampler_override = None
+        if getattr(args, "ckpt", None):
+            self._resume(args.ckpt)
         self.step_fn = make_train_step(self._statics(), device=self.device)
+
+    def save_full(self, path: str):
+        """Write a full training checkpoint: parameters, every Adam's moments
+        and step counts, the generator's state, and both samplers' ids,
+        cursors and numpy states. A run resumed from it continues the exact
+        trajectory (the reference's resume restarts the static model and all
+        optimizers, train.py:896-901)."""
+        tree = {
+            "params": {k: self.params[k] for k in ("static", "dynamic", "pose", "fov")},
+            "opt": {name: _adam_state(opt) for name, opt in self.opt_state.items()},
+            "gen_state": self.gen.get_state().numpy(),
+            "sampler_ids": np.asarray(
+                self.sampler.ids if self.sampler.ids is not None else np.zeros(0, np.int64)),
+            "sampler2_ids": np.asarray(
+                self.sampler2.ids if self.sampler2.ids is not None else np.zeros(0, np.int64)),
+        }
+        extra = {
+            "iteration": self.iteration,
+            "full_state": True,
+            "sampler_curr": int(self.sampler.curr),
+            "sampler2_curr": int(self.sampler2.curr),
+            "sampler_rng": self.sampler.rng.bit_generator.state,
+            "sampler2_rng": self.sampler2.rng.bit_generator.state,
+        }
+        save_checkpoint(path, tree, self.static_cfg, self.dynamic_cfg, self.aabb, extra=extra)
+
+    def _resume(self, ckpt_path: str):
+        """Resume from a native checkpoint. A full one (`save_full`, this
+        port's) restores the optimizers, the generator and the samplers too:
+        an exact continuation. A plain one (the CLI's periodic saves, either
+        package's) restores parameters, grids and iteration with fresh
+        optimizers. Both replay the learning-rate and upsample schedule up to
+        the checkpoint's iteration; the tables' layout is chosen anew from
+        the checkpoint's configs ('auto' by table bytes)."""
+        params, static_cfg, dynamic_cfg, aabb, extra, alpha = load_checkpoint(
+            ckpt_path, return_alpha=True)
+        if alpha is not None:
+            not_ported("resuming with an occupancy mask", COMPACTION)
+        full = bool(extra.get("full_state"))
+        if full and "gen_state" not in params:
+            raise ValueError(f"{ckpt_path}: a full checkpoint of another package; resume "
+                             "from a plain checkpoint or one this port wrote")
+        self.static_cfg = static_cfg
+        self.dynamic_cfg = dynamic_cfg
+        self.aabb = torch.as_tensor(aabb, dtype=torch.float32, device=self.device)
+        self.set_params(params["params"] if full else params)
+        self.iteration = int(extra.get("iteration", 0))
+        self.n_samples = min(
+            self.args.nSamples, cal_n_samples(static_cfg.grid_size, self.args.step_ratio))
+        if full:
+            for name, opt in self.opt_state.items():
+                _load_adam_state(opt, params.get("opt", {}).get(name), self.device)
+            self.gen.set_state(torch.from_numpy(np.asarray(params["gen_state"], np.uint8)))
+            for name, samp in (("sampler", self.sampler), ("sampler2", self.sampler2)):
+                ids = np.asarray(params[f"{name}_ids"])
+                samp.ids = ids if ids.size else None
+                samp.curr = int(extra[f"{name}_curr"])
+                samp.rng.bit_generator.state = extra[f"{name}_rng"]
+        # replay the schedule (the upsample ends iteration i when i is in
+        # upsamp_list, reference train.py:2582)
+        for i in range(self.iteration):
+            self.schedule.after_step(i)
+            if i in self.args.upsamp_list:
+                if self.n_voxel_list:
+                    self.n_voxel_list.pop(0)
+                self.schedule.on_upsample(i)
 
     def set_params(self, params):
         """Adopt a parameter tree (moved to this trainer's device as f32
@@ -218,8 +304,12 @@ class Trainer:
         grid is first used by the next iteration (the reference's in-body
         check, train.py:2582)."""
         i = self.iteration
-        ray_idx = torch.as_tensor(self.sampler.nextids(), dtype=torch.int64).to(self.device)
-        ray_idx_rand = torch.as_tensor(self.sampler2.nextids(), dtype=torch.int64).to(self.device)
+        if self.sampler_override is not None:
+            idx, idx_rand = self.sampler_override(i)
+        else:
+            idx, idx_rand = self.sampler.nextids(), self.sampler2.nextids()
+        ray_idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(self.device)
+        ray_idx_rand = torch.as_tensor(np.asarray(idx_rand), dtype=torch.int64).to(self.device)
         sc = {"iteration": i, "focal_fixed": self.focal_fixed, **self.schedule.scalars(i)}
         metrics = self.step_fn(
             self.params, self.opt_state, self.aabb, self.data, ray_idx, ray_idx_rand, self.gen, sc
@@ -251,3 +341,44 @@ class Trainer:
         fresh = init_opt_state(self.params)
         self.opt_state = dict(self.opt_state, fields=fresh["fields"])
         self.step_fn = make_train_step(self._statics(), device=self.device)
+
+    def train(self, n_steps: Optional[int] = None, log_every: int = 100, logger=None):
+        """Run n_steps (default: to n_iters). `logger`, if given, gets a dict
+        of host floats every `log_every` iterations and after the first,
+        the only points at which metrics are read back from the device.
+        Returns the last step's metrics as host floats."""
+        n = n_steps if n_steps is not None else self.args.n_iters - self.iteration
+        t0 = time.time()
+        metrics = {}
+        for _ in range(n):
+            metrics = self.run_step()
+            if logger is not None and (self.iteration % log_every == 0 or self.iteration == 1):
+                host = {k: float(v) for k, v in metrics.items()}
+                host["iter"] = self.iteration
+                host["elapsed"] = time.time() - t0
+                logger(host)
+        return {k: float(v) for k, v in metrics.items()}
+
+
+def _adam_state(opt: torch.optim.Adam):
+    """One Adam's per-parameter state, in its parameter order: [{step,
+    exp_avg, exp_avg_sq}], or [] before its first step."""
+    ps = [p for g in opt.param_groups for p in g["params"]]
+    if not all(p in opt.state and opt.state[p] for p in ps):
+        return []
+    return [{k: opt.state[p][k] for k in ("step", "exp_avg", "exp_avg_sq")} for p in ps]
+
+
+def _load_adam_state(opt: torch.optim.Adam, saved, device):
+    ps = [p for g in opt.param_groups for p in g["params"]]
+    if not saved:
+        return
+    if len(saved) != len(ps):
+        raise ValueError(f"optimizer state for {len(saved)} parameters, not {len(ps)}")
+    for p, st in zip(ps, saved):
+        opt.state[p] = {
+            "step": torch.tensor(float(np.asarray(st["step"])), dtype=torch.float32),
+            "exp_avg": torch.as_tensor(st["exp_avg"], dtype=torch.float32, device=device).clone(),
+            "exp_avg_sq": torch.as_tensor(st["exp_avg_sq"], dtype=torch.float32,
+                                          device=device).clone(),
+        }
