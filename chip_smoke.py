@@ -51,8 +51,26 @@ result):
      (golden/out/grads_ref.npz, 72 tensors, relative error <= 1e-3), and
      the reference's final .th pair rendered through the port against the
      reference's own PNGs (>= 50 dB each);
-  6. (printed last, after 7 and 8) a `main_path` JSON line per path, one
-     JSON line of kernels, the nvidia-smi line, and the result line.
+  9. compaction at full width (the recipe at 300³, bf16 auto):
+     9a. `Trainer.update_alpha_mask()` of a default trainer (its random
+         weights; a 192³ × 12 mask): seconds, occupancy, peak GiB;
+     9b. a fresh trainer with --compact_train 1 loads the committed
+         converged-scene mask (golden/out_quality/no_poses/alpha_mask.npz)
+         and enables compaction (K, F from the probe): 2 warm + 5 timed
+         compacted steps with counts and a profile (a `main_path` line,
+         path `compact`); each kernel held to its plain version at the
+         step's compacted shapes, with its time, the plain and index_add_
+         times and the bound;
+     9c. a trainer with --app_frac 0.25 --app_start 0, no mask: 2 steps,
+         launches counted (the split packs launch each kernel twice per
+         orientation);
+     9d. (inside phase 7, on its checkpoint) --render_only with the
+         committed mask and --compact_eval 1: one 8192-ray chunk held to
+         the superset-masked dense oracle, and a `render_compact` line
+         (ms/frame, rays/s, the flat bucket's N and occupied share per
+         chunk, peak GiB);
+  6. (printed last) a `main_path` JSON line per path, one JSON line of
+     kernels, the nvidia-smi line, and the result line.
 
 `python3 chip_smoke.py --kernels-only` runs phases 1-3 alone and prints the
 cases as one `kernel_cases` JSON line.
@@ -85,6 +103,12 @@ SCENE = dict(T=12, H=270, W=480)
 CLI_SCENE = dict(T=12, H=540, W=960)  # on disk; --downsample_train 2 -> 270×480
 CLI_STEPS = 3
 CLI_VOXELS = "27000000"  # the 300³ grid, as phases 4-4c
+# the committed converged-scene occupancy mask (192³ × 12, 38.8% occupied)
+MASK_NPZ = str(Path(__file__).resolve().parent / "golden" / "out_quality" / "no_poses"
+               / "alpha_mask.npz")
+CONFIG_COMPACT = RECIPE + ["--compact_train", "1"]
+CONFIG_APP = RECIPE + ["--app_frac", "0.25", "--app_start", "0"]
+ORACLE_RTOL, ORACLE_ATOL = 2e-5, 2e-6  # compact chunk vs its dense oracle (the JAX contract)
 GOLDEN_GRAD_RTOL, GOLDEN_MIN_PSNR = 1e-3, 50.0
 WARM_STEPS, TIMED_STEPS = 2, 5
 KERNEL_RTOL = 1e-4  # of max|plain|: f32 sums of ≤ a few hundred terms, another order
@@ -271,23 +295,67 @@ def sample_points(tr):
     return dyn.normalize_coord(flat, tr.aabb), warped
 
 
-def coalesce_cases(tr, gen):
+def compact_points(tr):
+    """The points the compacted step's field evaluations sample: the first
+    batch's pass-E geometry (jitter-free) masked by the union occupancy of
+    the train and random times, compacted to the [R, K] bucket and, with
+    the flat bucket on, to its F·R slots; normalised for the static field,
+    and warped for the dynamic one. Returns ((static points, warped
+    points), {name: the selection op at this geometry, for timing})."""
+    from rodynrf_tpu_torch.core.se3 import pose_to_mtx
+    from rodynrf_tpu_torch.fields import dynamic as dyn
+    from rodynrf_tpu_torch.render.pipeline import _flat_index
+    from rodynrf_tpu_torch.render.sampling import sample_xyz
+    from rodynrf_tpu_torch.train.schedule import PermutationSampler
+    from rodynrf_tpu_torch.train.step import (_compact_samp, _occupancy, _rays_from_idx,
+                                              focal_from_fov)
+
+    S, p = tr.step_fn.S, tr.params
+    ids = PermutationSampler(tr.scene.n_rays, tr.args.batch_size, tr.args.seed).nextids()
+    ids2 = PermutationSampler(tr.scene.n_rays, tr.args.batch_size, tr.args.seed + 1).nextids()
+    ray_idx, ray_rand = (torch.as_tensor(i).to(tr.device) for i in (ids, ids2))
+    ops = {}
+    with torch.no_grad():
+        focal = focal_from_fov(p["fov"][0, 0], S.H, S.W)
+        rays, _, _, _ = _rays_from_idx(ray_idx, pose_to_mtx(p["pose"]), focal, S)
+        xyz, z, valid = sample_xyz(rays, S.n_samples, S.ray_type, S.static_cfg.near_far,
+                                   tr.aabb, S.step_size, None, det_jitter=True)
+        ts, ts_rand = tr.data["ts"][ray_idx], tr.data["ts"][ray_rand]
+        ops["occupancy"] = lambda: _occupancy(tr.data, xyz, ts, valid, S.alpha_shape)
+        occ = (_occupancy(tr.data, xyz, ts, valid, S.alpha_shape)
+               | _occupancy(tr.data, xyz, ts_rand, valid, S.alpha_shape))
+        ops["compact_samp"] = lambda: _compact_samp(xyz, z, occ, rays, S.ray_type, S.compact_k)
+        (xyz_c, _, keep, _), _ = ops["compact_samp"]()
+        R, K = keep.shape
+        flat = xyz_c.reshape(-1, 3)
+        t_flat = ts[:, None].expand(R, K).reshape(-1)
+        if S.compact_flat:
+            ops["flat_index"] = lambda: _flat_index(keep, S.compact_flat * R)
+            _, idx_safe, rid = ops["flat_index"]()
+            flat, t_flat = flat[idx_safe], ts[rid]
+        warped = dyn.normalize_coord(dyn.warp_coordinate(p["dynamic"], flat, t_flat, tr.aabb),
+                                     tr.aabb)
+    return (dyn.normalize_coord(flat, tr.aabb), warped), ops
+
+
+def coalesce_cases(tr, gen, points=None, fields=("static", "dynamic")):
     """(name, rows, w4, ct, R) at every strided table-gradient shape of the
-    trainer's step (static and dynamic field, orientations 0-2), rows and
-    weights from the first batch's sample points, ct drawn from `gen`."""
+    trainer's step (the fields' orientations 0-2), rows and weights from
+    `points` (default: the first batch's sample points), ct drawn from
+    `gen`."""
     from rodynrf_tpu_torch.fields import dynamic as dyn
     from rodynrf_tpu_torch.fields import static as stat
     from rodynrf_tpu_torch.ops.fused_vm import plane_rows_weights
 
     S, p = tr.step_fn.S, tr.params
-    pts_static, warped = sample_points(tr)
+    pts_static, warped = points if points is not None else sample_points(tr)
     with torch.no_grad():
         packs = {
             "static": (stat.pack_tables(p["static"], S.static_cfg), pts_static),
             "dynamic": (dyn.pack_tables(p["dynamic"], S.dynamic_cfg), warped),
         }
     cases = []
-    for field, o in [(f, o) for f in ("static", "dynamic") for o in range(3)]:
+    for field, o in [(f, o) for f in fields for o in range(3)]:
         packed, pts = packs[field]
         assert packed.meta["layout"] == "strided"
         idx, w = plane_rows_weights(packed, pts, o)
@@ -298,16 +366,16 @@ def coalesce_cases(tr, gen):
     return cases
 
 
-def segsum_cases(tr, gen):
+def segsum_cases(tr, gen, points=None):
     """(name, rows, w, ct, R, table dtype) at the three merged table-gradient
     shapes of the default path's dynamic field: rows from the merged row map
-    at the warped sample points, the step's corner weights w and a seeded
-    ct."""
+    at the warped sample points (`points`, default the first batch's), the
+    step's corner weights w and a seeded ct."""
     from rodynrf_tpu_torch.fields import dynamic as dyn
     from rodynrf_tpu_torch.ops.fused_vm import merged_rows_weights
 
     S = tr.step_fn.S
-    _, warped = sample_points(tr)
+    _, warped = points if points is not None else sample_points(tr)
     with torch.no_grad():
         packed = dyn.pack_tables(tr.params["dynamic"], S.dynamic_cfg)
     assert packed.meta["layout"] == "merged"
@@ -455,17 +523,177 @@ def check_segsum(tr):
     return results
 
 
+def _kernel_case(kind, name, field, M, R, C, out, err, scale, ms, plain_ms, library_ms,
+                 bound):
+    case = dict(case=name, field=field, M=M, R=R, C=C, out=str(out).replace("torch.", ""),
+                max_abs_err=err, tol=KERNEL_RTOL * scale, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1])
+    log(f"[compact kernel] {kind} {name}: M={M} R={R} C={C} out {case['out']} "
+        f"max_abs_err={err:.3e} (tol {case['tol']:.3e}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]})")
+    if not err <= case["tol"]:
+        raise AssertionError(f"{kind} kernel disagrees with its plain version at the "
+                             f"compacted shape {name}")
+    return case
+
+
+def check_compacted_kernels(tr, points):
+    """Both kernels held to their plain versions at the compacted step's
+    shapes (M = the rows its field evaluations sample, `compact_points`):
+    the coalesce kernel at each strided field's three orientations, in the
+    table dtype; the factored segment sum at the merged field's three.
+    Kernel, plain and index_add_ times (CUDA events) and the bound."""
+    from rodynrf_tpu_torch.ops import coalesced as tco
+    from rodynrf_tpu_torch.ops import segsum as tseg
+
+    S = tr.step_fn.S
+    layouts = tr.table_layouts()
+    gen = torch.Generator(device=tr.device).manual_seed(2)
+    cases = []
+    strided = tuple(f for f in ("static", "dynamic") if layouts[f] == "strided")
+    for name, rows, w4, ct, R in coalesce_cases(tr, gen, points, strided):
+        M, C = ct.shape
+        cfg = S.static_cfg if name.startswith("static") else S.dynamic_cfg
+        out = cfg.gather_dtype or torch.float32
+        got = tco.coalesce_table_grad(rows, w4, ct, R)
+        want = tco.coalesce_table_grad_plain(rows, w4, ct, R)
+        torch.cuda.synchronize()
+        upd = (w4[:, :, None] * ct[:, None, :]).reshape(M, 4 * C)
+        acc = torch.zeros((R, 4 * C), device=tr.device)
+        cases.append(_kernel_case(
+            "coalesce_table_grad", name, name.split()[0], M, R, C, out,
+            float((got - want).abs().max()), float(want.abs().max()),
+            median_ms(lambda: tco.coalesce_table_grad(rows, w4, ct, R, out))[0],
+            median_ms(lambda: tco.coalesce_table_grad_plain(rows, w4, ct, R, out))[0],
+            median_ms(lambda: acc.index_add_(0, rows, upd))[0],
+            coalesce_bound_ms(M, R, C, torch.empty((), dtype=out).element_size())))
+        del upd, acc, got, want
+    if layouts["dynamic"] == "merged":
+        for name, rows, w, ct, R, dtype in segsum_cases(tr, gen, points):
+            M, nS, C = ct.shape
+            got = tseg.segment_rows_sum_factored(rows, w, ct, R, dtype, torch.float32)
+            want = tseg.segment_rows_sum_factored_plain(rows, w, ct, R, dtype, torch.float32)
+            torch.cuda.synchronize()
+            u = tseg.factored_update(w, ct, dtype)
+            cases.append(_kernel_case(
+                "segment_rows_sum", name, "dynamic", M, R, nS * 4 * C, dtype,
+                float((got - want).abs().max()), float(want.abs().max()),
+                median_ms(lambda: tseg.segment_rows_sum_factored(rows, w, ct, R, dtype))[0],
+                median_ms(lambda: tseg.segment_rows_sum_factored_plain(rows, w, ct, R,
+                                                                        dtype))[0],
+                median_ms(lambda: tseg.segment_rows_sum_plain(rows, u, R))[0],
+                factored_bound_ms(M, R, nS, C, torch.empty((), dtype=dtype).element_size())))
+            del got, want, u
+    return cases
+
+
+def drive_compaction(scene, smi: str, device: str = "cuda"):
+    """Phase 9a-9c. Returns (records for the report: the `compact` and
+    `app_frac` paths, {mask_build, compact kernel cases}). (`device` and
+    the module's CONFIG_* let the phase be rehearsed on the CPU at a small
+    size.)"""
+    from rodynrf_tpu_torch.fields.alpha_mask import load_alpha_npz
+    from rodynrf_tpu_torch.train import Trainer, parse_cmd
+
+    # 9a. the mask build of a default trainer, at its random weights
+    tr = Trainer(parse_cmd(" ".join(CONFIG_DEFAULT)), scene, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    occ = tr.update_alpha_mask()
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    shape = list(tr.alpha_mask.alpha_volume.shape)
+    want = [min(g, 192) for g in tr.dynamic_cfg.grid_size][::-1] + [scene.n_frames]
+    if shape != want or tr.alpha_mask.alpha_volume.dtype != torch.uint8:
+        raise AssertionError(f"mask build: volume {shape} {tr.alpha_mask.alpha_volume.dtype}")
+    mask_build = {"seconds": build_s, "volume": shape, "occupancy": occ,
+                  "grid": list(tr.dynamic_cfg.grid_size),
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "card": smi}
+    log(f"[compact] 9a mask build: {build_s:.2f} s for {shape} at grid "
+        f"{mask_build['grid']}, occupancy {occ:.4f}, peak {mask_build['peak_gib']:.2f} GiB "
+        f"({smi})")
+    log(json.dumps({"mask_build": mask_build}))
+    del tr
+    torch.cuda.empty_cache()
+
+    # 9b. the compacted step on the committed converged-scene mask
+    tr = Trainer(parse_cmd(" ".join(CONFIG_COMPACT)), scene, device=device)
+    tr.alpha_mask = load_alpha_npz(MASK_NPZ).to(tr.device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tr._enable_train_compaction()
+    torch.cuda.synchronize()
+    enable_s = time.time() - t0
+    S = tr.step_fn.S
+    if not (S.use_alpha_mask and S.compact_k > 0):
+        raise AssertionError("train compaction did not enable on the committed mask")
+    log(f"[compact] 9b committed mask {list(tr.alpha_mask.alpha_volume.shape)} occupancy "
+        f"{float(tr.alpha_mask.alpha_volume.float().mean()):.4f}: K={S.compact_k} "
+        f"flat={S.compact_flat} of {S.n_samples} samples/ray (probe + enable {enable_s:.2f} s)")
+    points, ops = compact_points(tr)
+    cases = check_compacted_kernels(tr, points)
+    with torch.no_grad():  # the selection ops of one pass, at the step's shapes
+        op_ms = {k: median_ms(fn)[0] for k, fn in ops.items()}
+    log(f"[compact] selection ops of one pass ({tr.args.batch_size} rays x {S.n_samples} "
+        "samples): " + ", ".join(f"{k} {v:.4f} ms" for k, v in op_ms.items()) + f" ({smi})")
+    evals = {"static": 1 + 4 * S.optimize_poses, "dynamic": 4}
+    kernel_ms = sum(c["ms"] * evals[c["field"]] for c in cases)
+    log(f"[compact] table-gradient kernels per compacted step (evals x shapes above): "
+        f"{kernel_ms:.2f} ms ({smi})")
+    rec = drive_path(tr, "compact", smi, kernel_ms)
+    if not all(rec["launches"][k] > 0 for k in KERNELS):
+        raise AssertionError(f"the compacted step launched {rec['launches']}")
+    rec.update(compact_k=S.compact_k, compact_flat=S.compact_flat, probe_s=enable_s,
+               flat_rows_per_eval=S.compact_flat * tr.args.batch_size, selection_op_ms=op_ms)
+    del tr
+    torch.cuda.empty_cache()
+
+    # 9c. appearance top-K compaction, no mask: the split packs
+    tr = Trainer(parse_cmd(" ".join(CONFIG_APP)), scene, device=device)
+    S, layouts = tr.step_fn.S, tr.table_layouts()
+    if not (S.static_cfg.app_frac > 0 and isinstance(layouts["dynamic"], dict)):
+        raise AssertionError(f"appearance compaction is not active: {layouts}")
+    per_step = launches_per_step(S, layouts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.time()
+    run_steps(tr, 2, "app_frac")
+    app_s = (time.time() - t0) / 2
+    launches = counters()
+    if launches != {k: 2 * v for k, v in per_step.items()}:
+        raise AssertionError(f"app_frac: launches {launches} != 2 x {per_step}")
+    app = {"path": "app_frac", "layouts": layouts, "app_topk": S.dynamic_cfg.app_topk(S.n_samples),
+           "n_samples": S.n_samples, "ms_per_step": app_s * 1e3, "steps": 2,
+           "launches": launches, "launches_per_step": per_step,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "card": smi}
+    log(f"[compact] 9c app_frac 0.25: K={app['app_topk']} of {S.n_samples}, layouts {layouts}, "
+        f"{app_s * 1e3:.1f} ms/step (2 steps, first included), launches {launches}, peak "
+        f"{app['peak_gib']:.2f} GiB ({smi})")
+    log(json.dumps({"main_path": app}))
+    del tr
+    torch.cuda.empty_cache()
+    return [rec, app], {"mask_build": mask_build, "compact_cases": cases}
+
+
 def launches_per_step(S, layouts) -> dict:
     """Table-gradient launches in one step, per kernel: one per orientation
     of every field evaluation that carries a gradient (one gather covers all
     strides); a strided field's go to the coalesce kernel, a merged field's
     to the segment-sum kernel. Sequential passes: static E (+ F, G, FF, BB
     with pose optimisation), dynamic A, B, C, D; A/B reuse E's static eval
-    detached."""
+    detached. A field's split pack (appearance compaction) launches its
+    density part in each of those evaluations and its appearance part only
+    where a loss reads the rgb (static E, dynamic A: the other passes' losses
+    read weights and depths), each part by its own layout."""
     evals = {"static": 1 + (4 if S.optimize_poses else 0), "dynamic": 4}
     out = {k: 0 for k in KERNELS}
     for field, n in evals.items():
-        out["segsum" if layouts[field] == "merged" else "coalesce"] += 3 * n
+        parts = layouts[field] if isinstance(layouts[field], dict) else {"": layouts[field]}
+        for part, layout in parts.items():
+            out["segsum" if layout == "merged" else "coalesce"] += 3 * (1 if part == "app" else n)
     return out
 
 
@@ -735,6 +963,7 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
         chunk_profile = (profile_render_chunk(rep["ckpt"], CLI_SCENE["H"] // 2,
                                               CLI_SCENE["W"] // 2, n_samples)
                          if device == "cuda" else {})
+        render_compact = drive_compact_render(argv, rep, smi, device)
 
         args = config_parser(argv + ["--ckpt", rep["ckpt"], "--n_iters", str(CLI_STEPS + 1)])
         t0 = time.time()
@@ -768,7 +997,84 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
     }
     log(json.dumps({"render": render}))
     log(json.dumps({"cli": cli}))
+    log(json.dumps({"render_compact": render_compact}))
     return {"path": "cli", "launches": launches, "launches_per_step": per_step}
+
+
+def drive_compact_render(argv, rep, smi: str, device: str):
+    """Phase 9d: --render_only of phase 7's checkpoint with the committed
+    mask and --compact_eval 1 (every frame, the flat bucket per chunk), then
+    one 8192-ray chunk of frame 0 held to the superset-masked dense oracle.
+    Returns the `render_compact` record."""
+    import numpy as np
+
+    from rodynrf_tpu_torch.cli import main as cli_main
+    from rodynrf_tpu_torch.core.se3 import pose_to_mtx
+    from rodynrf_tpu_torch.fields.alpha_mask import load_alpha_npz
+    from rodynrf_tpu_torch.fields.config import cal_n_samples
+    from rodynrf_tpu_torch.render.renderer import make_chunk_renderer, rays_for_view
+    from rodynrf_tpu_torch.train import config_parser
+    from rodynrf_tpu_torch.train.checkpoints import load_checkpoint
+    from rodynrf_tpu_torch.train.convert import params_from_numpy
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    crep = cli_main(argv + ["--render_only", "1", "--ckpt", rep["ckpt"], "--alpha_mask",
+                            MASK_NPZ, "--compact_eval", "1"], device)
+    render_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if len(crep["psnrs"]) != CLI_SCENE["T"] or not all(math.isfinite(p) for p in crep["psnrs"]):
+        raise AssertionError(f"compact render PSNRs {crep['psnrs']}")
+    flat = crep["flat_log"]
+    # chunks no larger than one bucket quantum (16384 samples) render dense
+    if not flat or not all(n < rs for n, _, rs in flat if rs > 16384):
+        raise AssertionError(f"the compact render ran no flat bucket: {flat[:4]}")
+
+    params, st, dy, aabb, extra = load_checkpoint(rep["ckpt"])
+    pose = pose_to_mtx(torch.from_numpy(np.asarray(params["pose"])))[0].numpy()
+    p = params_from_numpy({k: params[k] for k in ("static", "dynamic")}, device)
+    aabb_t = torch.as_tensor(aabb, device=device)
+    H, W = CLI_SCENE["H"] // 2, CLI_SCENE["W"] // 2
+    args = config_parser(argv)
+    n_samples = min(args.nSamples, cal_n_samples(st.grid_size, args.step_ratio))
+    chunk = make_chunk_renderer(st, dy, "ndc", n_samples, st.step_size(aabb),
+                                alpha_mask=load_alpha_npz(MASK_NPZ), compact=True)
+    rays = rays_for_view(pose, extra["focal"], H, W, "ndc", device=device)[:8192]
+    ts = torch.full((rays.shape[0],), -1.0, device=device)
+    packs = chunk.pack(p)
+    got = chunk(p, packs, aabb_t, rays, ts)
+    want = chunk.dense_superset(p, packs, aabb_t, rays, ts)
+    gaps, exact = {}, True
+    for name in got._fields:
+        if name == "delta_xyz":  # averages the kept samples only, by definition
+            continue
+        a, b = getattr(got, name), getattr(want, name)
+        gaps[name] = float((a - b).abs().max())
+        exact = exact and bool(torch.equal(a, b))
+        if not torch.allclose(a, b, rtol=ORACLE_RTOL, atol=ORACLE_ATOL):
+            raise AssertionError(f"compact chunk {name} differs from its oracle: {gaps[name]}")
+    N, total, RS = chunk.flat_log[-1]
+    log(f"[render_compact] oracle chunk: N {N} for {total} occupied of {RS} samples; "
+        f"bit for bit {exact}; largest gap {max(gaps.values()):.3e}")
+    frame_ms = sorted(1e3 * t for t in crep["frame_s"])
+    med = frame_ms[len(frame_ms) // 2]
+    record = {
+        "frames": len(frame_ms), "H": H, "W": W, "n_samples": n_samples, "chunk": 8192,
+        "mask": MASK_NPZ.split("/golden/")[-1], "ms_per_frame_median": med,
+        "rays_per_s": H * W / (med / 1e3), "frame_ms": [1e3 * t for t in crep["frame_s"]],
+        "flat_N": [n for n, _, _ in flat], "occupied_share": [c / rs for _, c, rs in flat],
+        "peak_gib": peak / 2**30, "render_only_s": render_s, "psnrs": crep["psnrs"],
+        "oracle": {"N": N, "occupied": total, "samples": RS, "bit_exact": exact, "gaps": gaps},
+        "card": smi,
+    }
+    log(f"[render_compact] {med:.1f} ms/frame (median of {len(frame_ms)}), "
+        f"{record['rays_per_s']:.0f} rays/s, flat N {min(record['flat_N'])}-"
+        f"{max(record['flat_N'])}, occupied share "
+        f"{min(record['occupied_share']):.4f}-{max(record['occupied_share']):.4f} per chunk, "
+        f"peak {peak / 2**30:.2f} GiB ({smi})")
+    return record
+
 
 
 def profile_render_chunk(ckpt: str, H: int, W: int, n_samples: int, top: int = 12):
@@ -953,6 +1259,10 @@ def main() -> int:
     # 8. the golden gates on the card
     log(json.dumps({"golden": golden_gates(smi)}))
 
+    # 9. compaction at full width (9d ran inside phase 7)
+    compact_records, compact_info = drive_compaction(scene, smi)
+    records.extend(compact_records)
+
     # 6. report
     def launches(kernel):
         return sum(r.get("launches", {}).get(kernel, 0) + r.get("crossing_launches", {}).get(
@@ -971,6 +1281,8 @@ def main() -> int:
             "library_ms": main_case["library_ms"], "device_ms": main_case["device_ms"],
             "split": main_case["split"], "section": main_case["section"],
             "case": main_case["case"], "cases": cases,
+            "compact_cases": [c for c in compact_info["compact_cases"]
+                              if c["case"].startswith("dynamic merged") == (kernel == "segsum")],
         }
 
     kernels = [

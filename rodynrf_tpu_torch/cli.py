@@ -6,8 +6,13 @@ reference train.py:2661-2675).
     python -m rodynrf_tpu_torch --config ... --render_only 1 --render_test 1 --render_path 1
 
 `main(argv, device="cuda")` is the entry point; it runs on the card and
-refuses without one unless the caller passes device="cpu". Mesh export
-(--export_mesh 1) and occupancy masks are later slices and are refused.
+refuses without one unless the caller passes device="cpu". Occupancy masks
+work as in train.py: `update_AlphaMask_list` builds one during training
+(and with --compact_train 1 the step compacts against it), checkpoints
+carry it, and the evaluations render with it (--compact_eval 1, the
+default: the flat-bucket compact renderer); --alpha_mask <npz> renders a
+checkpoint with a standalone mask. Mesh export (--export_mesh 1) is a later
+slice and is refused.
 Each function returns a small report (timings, PSNRs, paths) besides
 writing what train.py writes.
 """
@@ -24,13 +29,14 @@ from .core.se3 import pose_to_mtx
 from .data.video_dataset import load_scene
 from .eval.evaluation import evaluate, export_poses_bounds
 from .eval.paths import evaluation_path, generate_path
+from .fields.alpha_mask import load_alpha_npz
 from .fields.config import FieldConfig, cal_n_samples
 from .render.renderer import make_chunk_renderer
 from .train.checkpoints import export_th, import_th, load_checkpoint, save_checkpoint
 from .train.config import config_parser
 from .train.convert import params_from_numpy
 from .train.step import check_device
-from .train.trainer import COMPACTION, MESH_LPIPS, Trainer, not_ported
+from .train.trainer import MESH_LPIPS, Trainer, not_ported
 
 
 class _DummyWriter:
@@ -77,10 +83,11 @@ def _save_ckpts(trainer, logfolder, expname):
         {k: trainer.params[k] for k in ("static", "dynamic", "pose", "fov")},
         trainer.static_cfg, trainer.dynamic_cfg, trainer.aabb,
         extra={"focal": focal, "iteration": trainer.iteration},
+        alpha_mask=trainer.alpha_mask,
     )
     if trainer.args.export_th:
         export_th(f"{logfolder}/{expname}.th", trainer.params["dynamic"], trainer.dynamic_cfg,
-                  trainer.aabb, poses_mtx, focal, dynamic=True)
+                  trainer.aabb, poses_mtx, focal, dynamic=True, alpha_mask=trainer.alpha_mask)
         export_th(f"{logfolder}/{expname}_static.th", trainer.params["static"],
                   trainer.static_cfg, trainer.aabb, poses_mtx, focal, dynamic=False)
     return time.perf_counter() - t0, os.path.getsize(path)
@@ -193,7 +200,8 @@ def _pose_diagnostics(trainer, scene, writer, it):
 def reconstruction(args, device="cuda"):
     """Load, train, checkpoint, evaluate (reference: train.py:824-2658).
     Returns {loader_s, train_s, save_s, ckpt, ckpt_bytes, psnrs, frame_s,
-    eval_s, losses}: `losses` the total loss at each progress line."""
+    eval_s, losses, compaction}: `losses` the total loss at each progress
+    line, `compaction` the step's bucket sizes at the end {k, flat, mask}."""
     t0 = time.perf_counter()
     scene = load_scene(args)
     report = {"loader_s": time.perf_counter() - t0}
@@ -208,8 +216,14 @@ def reconstruction(args, device="cuda"):
     t0 = time.time()
     window, losses = [], []
     start = trainer.iteration
+    update_alpha_iters = set(args.update_AlphaMask_list)
     for it in range(start, args.n_iters):
         metrics = trainer.run_step()
+        # occupancy-mask refresh (the reference parses update_AlphaMask_list
+        # but never reads it, opt.py:211; here it builds the mask of the
+        # evaluation's early-out and, with --compact_train, of the step)
+        if (it + 1) in update_alpha_iters:
+            trainer.update_alpha_mask()
         # metrics are read back from the device only here (train.py:210-215)
         if (it + 1) % args.progress_refresh_rate == 0:
             host = {k: float(v) for k, v in metrics.items()}
@@ -236,16 +250,19 @@ def reconstruction(args, device="cuda"):
         torch.cuda.synchronize()
     report["train_s"] = time.time() - t0
     report["losses"] = losses
+    report["compaction"] = {"k": trainer.compact_k, "flat": trainer.compact_flat,
+                            "mask": trainer.alpha_mask is not None}
 
     report["save_s"], report["ckpt_bytes"] = _save_ckpts(trainer, logfolder, args.expname)
     report["ckpt"] = f"{logfolder}/{args.expname}.npz"
 
-    # final evaluation (train.py:2623-2641); the trainer builds no occupancy
-    # mask, so --compact_eval has nothing to compact, as in the JAX package
+    # final evaluation (train.py:2623-2641), with the trainer's mask if it
+    # built one
     poses_mtx, focal = _current_cameras(trainer)
     render_chunk = make_chunk_renderer(
         trainer.static_cfg, trainer.dynamic_cfg, args.ray_type, trainer.n_samples,
         trainer.static_cfg.step_size(np.asarray(scene.scene_bbox)),
+        alpha_mask=trainer.alpha_mask, compact=bool(args.compact_eval),
     )
     frame_s = []
     t0 = time.perf_counter()
@@ -309,8 +326,11 @@ def _load_reference_th_pair(ckpt_path):
 def render_test(args, logfolder, device="cuda"):
     """Render from a checkpoint (reference: train.py:420-530): the test
     views with --render_test 1, the five path families with --render_path
-    1. `--ckpt` may name a native .npz or a reference .th pair. Returns
-    {load_s, psnrs, frame_s, eval_s}."""
+    1. `--ckpt` may name a native .npz or a reference .th pair; the
+    checkpoint's occupancy mask, or the one --alpha_mask names, masks the
+    render (--compact_eval 1: the compact renderer). Returns {load_s,
+    psnrs, frame_s, eval_s, flat_log}: flat_log the compact renderer's (N,
+    occupied, R·S) per chunk."""
     dev = check_device(device)
     scene = load_scene(args)
     ckpt_path = args.ckpt or f"{logfolder}/{args.expname}.npz"
@@ -327,15 +347,14 @@ def render_test(args, logfolder, device="cuda"):
     params = params_from_numpy({"static": params["static"], "dynamic": params["dynamic"]}, dev)
     step_size = static_cfg.step_size(aabb)
     aabb = torch.as_tensor(aabb, dtype=torch.float32, device=dev)
+    if args.alpha_mask:
+        alpha_mask = load_alpha_npz(args.alpha_mask)
     report = {"load_s": time.perf_counter() - t0}
-    if (alpha_mask is not None or args.alpha_mask) and args.compact_eval:
-        not_ported("--compact_eval 1 with an occupancy mask (compacted rendering)", COMPACTION)
-    if alpha_mask is not None or args.alpha_mask:
-        not_ported("rendering with an occupancy mask (--alpha_mask or the checkpoint's)",
-                   COMPACTION)
     n_samples = min(args.nSamples, cal_n_samples(static_cfg.grid_size, args.step_ratio))
     render_chunk = make_chunk_renderer(
-        static_cfg, dynamic_cfg, args.ray_type, n_samples, step_size)
+        static_cfg, dynamic_cfg, args.ray_type, n_samples, step_size,
+        alpha_mask=alpha_mask, compact=bool(args.compact_eval))
+    report["flat_log"] = render_chunk.flat_log
 
     near_fars = None
     if args.render_test or args.render_train:

@@ -42,6 +42,23 @@ class FieldConfig:
     # 'merged' (one row per joint multiscale cell) or 'auto' (picks by table
     # bytes, ops/fused_vm.resolve_layout)
     vm_layout: str = "auto"
+    # fixed-bucket appearance compaction: the appearance gather and shading
+    # MLP run only on the K highest-weight samples of each ray (K =
+    # app_topk(S)), with the reference's `weight > ray_march_weight_thres`
+    # zeroing applied in compacted space (reference: tensorBase.py:774-804
+    # `app_mask`); exact vs the dense path whenever every ray's
+    # above-threshold count is <= K. 0.0 = dense.
+    app_frac: float = 0.0
+
+    def app_topk(self, n_samples: int) -> int:
+        """Per-ray appearance bucket size for S samples per ray:
+        ceil(app_frac · S) rounded up to a multiple of 8, in [8, S]; 0 when
+        compaction is off."""
+        if self.app_frac <= 0.0:
+            return 0
+        k = int(np.ceil(self.app_frac * n_samples))
+        k = ((k + 7) // 8) * 8
+        return min(n_samples, max(8, k))
 
     @property
     def gather_dtype(self):

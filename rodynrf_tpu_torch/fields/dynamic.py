@@ -19,6 +19,7 @@ from ..ops.fused_vm import (
     pack_vm,
     sample_vm_fused,
 )
+from ..ops.grid_sample import sample_vm
 from ..ops.regularizers import tv_loss_vm, vm_outer_l1
 from .config import FieldConfig
 from .mlps import init_shading, linear, linear_init, mlp_apply, mlp_init, uniform
@@ -81,34 +82,75 @@ def _head_inputs(vm_feats, xyz_n, t):
     )
 
 
+def density_feature(params, cfg: FieldConfig, xyz_n, t, xyz_warped_n) -> torch.Tensor:
+    """Multiscale density through the unfused sampler + the density head
+    (reference: tensoRF.py:646-732). xyz_n: normalized query coords [N, 3];
+    xyz_warped_n: normalized warped coords; t [N]. Returns [N]."""
+    feats = sample_vm(params["density_plane"], params["density_line"], xyz_warped_n,
+                      strides=MULTISCALE_STRIDES, gather_dtype=cfg.gather_dtype)
+    return mlp_apply(params["density_head"], _head_inputs(feats, xyz_n, t))[..., 0]
+
+
 def pack_tables(params, cfg: FieldConfig, eval_mode: bool = False):
     """Fused gather tables for the dynamic field's three grids (density,
     blending, appearance share the warped sample coordinates), in the
     config's gather dtype and layout ('auto' picks by table bytes; with
     `eval_mode`, the render path's larger budget). Build once per step (or
-    per rendered frame) and share across passes."""
-    return pack_vm(
-        [
-            (params["density_plane"], params["density_line"]),
-            (params["blending_plane"], params["blending_line"]),
-            (params["app_plane"], params["app_line"]),
-        ],
-        strides=MULTISCALE_STRIDES,
-        gather_dtype=cfg.gather_dtype,
-        layout=cfg.vm_layout,
-        merged_bytes_limit=EVAL_MERGED_BYTES_LIMIT if eval_mode else MERGED_BYTES_LIMIT,
-    )
+    per rendered frame) and share across passes.
+
+    With appearance compaction (cfg.app_frac > 0) the density + blending
+    grids and the appearance grid pack apart as {"db", "app"}, each taking
+    its own layout: the narrow density + blending rows are gathered for
+    every sample, the wide appearance rows only for the per-ray top-K
+    bucket (render/pipeline.py)."""
+    density = (params["density_plane"], params["density_line"])
+    blending = (params["blending_plane"], params["blending_line"])
+    app = (params["app_plane"], params["app_line"])
+
+    def pack(grids):
+        return pack_vm(
+            grids,
+            strides=MULTISCALE_STRIDES,
+            gather_dtype=cfg.gather_dtype,
+            layout=cfg.vm_layout,
+            merged_bytes_limit=EVAL_MERGED_BYTES_LIMIT if eval_mode else MERGED_BYTES_LIMIT,
+        )
+
+    if cfg.app_frac > 0.0:
+        return {"db": pack([density, blending]), "app": pack([app])}
+    return pack([density, blending, app])
 
 
 def all_features_fused(params, cfg: FieldConfig, xyz_n, t, xyz_warped_n, packed=None):
     """Density, blending and appearance features from one fused gather per
-    orientation. Returns (sigma_raw [N], blending_raw [N], app [N, app_dim])."""
+    orientation (two with a split pack). Returns (sigma_raw [N],
+    blending_raw [N], app [N, app_dim])."""
     if packed is None:
         packed = pack_tables(params, cfg)
+    if isinstance(packed, dict):  # split (compaction) pack, dense evaluation
+        sigma, blend = density_blend_fused(params, cfg, xyz_n, t, xyz_warped_n, packed)
+        return sigma, blend, app_fused(params, cfg, xyz_warped_n, packed)
     dens_f, blend_f, app_f = sample_vm_fused(packed, xyz_warped_n)
     sigma = mlp_apply(params["density_head"], _head_inputs(dens_f, xyz_n, t))[..., 0]
     blend = mlp_apply(params["blending_head"], _head_inputs(blend_f, xyz_n, t))[..., 0]
     return sigma, blend, app_f @ params["basis_mat"]
+
+
+def density_blend_fused(params, cfg: FieldConfig, xyz_n, t, xyz_warped_n, packed):
+    """Phase 1 of the compacted evaluation: density and blending of every
+    sample from the split pack's "db" tables. Returns (sigma_raw [N],
+    blending_raw [N])."""
+    dens_f, blend_f = sample_vm_fused(packed["db"], xyz_warped_n)
+    sigma = mlp_apply(params["density_head"], _head_inputs(dens_f, xyz_n, t))[..., 0]
+    blend = mlp_apply(params["blending_head"], _head_inputs(blend_f, xyz_n, t))[..., 0]
+    return sigma, blend
+
+
+def app_fused(params, cfg: FieldConfig, xyz_warped_n, packed):
+    """Phase 2 of the compacted evaluation: appearance features at the
+    (compacted) warped coordinates [M, 3] -> [M, app_dim]."""
+    (app_f,) = sample_vm_fused(packed["app"], xyz_warped_n)
+    return app_f @ params["basis_mat"]
 
 
 def _flow_inputs(pts_n, tt):

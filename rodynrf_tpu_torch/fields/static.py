@@ -19,6 +19,7 @@ from ..ops.grid_sample import (
     VEC_MODE,
     resize_bilinear_align_corners,
     resize_line_align_corners,
+    sample_vm_sum,
 )
 from ..ops.regularizers import tv_loss_vm, vm_outer_l1
 from .config import FieldConfig
@@ -54,35 +55,63 @@ def init_static_field(gen: torch.Generator, cfg: FieldConfig):
     }
 
 
+def density_feature(params, xyz_n: torch.Tensor, gather_dtype=None) -> torch.Tensor:
+    """Σ plane⊙line density through the unfused sampler (reference:
+    tensoRF.py:118-154). xyz_n [N, 3] -> [N]."""
+    return sample_vm_sum(params["density_plane"], params["density_line"], xyz_n,
+                         gather_dtype=gather_dtype)
+
+
 def pack_tables(params, cfg: FieldConfig):
-    """Fused gather tables for the static field: density and appearance
-    grids share one corner-packed table per orientation (one stride, so the
-    layout is always strided), in the config's gather dtype."""
-    return pack_vm(
-        [
-            (params["density_plane"], params["density_line"]),
-            (params["app_plane"], params["app_line"]),
-        ],
-        strides=(1,),
-        gather_dtype=cfg.gather_dtype,
-    )
+    """Fused gather tables for the static field, in the config's gather
+    dtype (one stride, so the layout is always strided). Density and
+    appearance share one corner-packed table per orientation; with
+    appearance compaction (cfg.app_frac > 0) they pack apart as {"db",
+    "app"}: density rows are gathered for every sample, appearance rows
+    only for the per-ray top-K bucket (render/pipeline.py)."""
+    density = (params["density_plane"], params["density_line"])
+    app = (params["app_plane"], params["app_line"])
+    if cfg.app_frac > 0.0:
+        return {"db": pack_vm([density], strides=(1,), gather_dtype=cfg.gather_dtype),
+                "app": pack_vm([app], strides=(1,), gather_dtype=cfg.gather_dtype)}
+    return pack_vm([density, app], strides=(1,), gather_dtype=cfg.gather_dtype)
 
 
-def all_features_fused(params, cfg: FieldConfig, xyz_n, packed=None):
-    """Density (Σ plane⊙line) and appearance features in one fused gather
-    (reference semantics tensoRF.py:118-196). Returns (sigma_feat [N],
-    app [N, app_dim])."""
-    if packed is None:
-        packed = pack_tables(params, cfg)
-    dens_f, app_f = sample_vm_fused(packed, xyz_n)
-    # Σ_axes Σ_c with the per-axis add order of the reference sampler
-    sigma = torch.zeros(xyz_n.shape[0], dtype=xyz_n.dtype, device=xyz_n.device)
+def _sigma_sum(params, dens_f):
+    """Σ_axes Σ_c with the per-axis add order of the reference sampler."""
+    sigma = torch.zeros(dens_f.shape[0], dtype=dens_f.dtype, device=dens_f.device)
     c0 = 0
     for p in params["density_plane"]:
         c = p.shape[0]
         sigma = sigma + torch.sum(dens_f[:, c0:c0 + c], dim=-1)
         c0 += c
-    return sigma, app_f @ params["basis_mat"]
+    return sigma
+
+
+def all_features_fused(params, cfg: FieldConfig, xyz_n, packed=None):
+    """Density (Σ plane⊙line) and appearance features in one fused gather
+    (reference semantics tensoRF.py:118-196), or in two when the pack is
+    split. Returns (sigma_feat [N], app [N, app_dim])."""
+    if packed is None:
+        packed = pack_tables(params, cfg)
+    if isinstance(packed, dict):  # split (compaction) pack, dense evaluation
+        return density_fused(params, cfg, xyz_n, packed), app_fused(params, cfg, xyz_n, packed)
+    dens_f, app_f = sample_vm_fused(packed, xyz_n)
+    return _sigma_sum(params, dens_f), app_f @ params["basis_mat"]
+
+
+def density_fused(params, cfg: FieldConfig, xyz_n, packed):
+    """Phase 1 of the compacted static evaluation: the density feature of
+    every sample from the split pack's "db" tables. Returns [N]."""
+    (dens_f,) = sample_vm_fused(packed["db"], xyz_n)
+    return _sigma_sum(params, dens_f)
+
+
+def app_fused(params, cfg: FieldConfig, xyz_n, packed):
+    """Phase 2 of the compacted static evaluation: appearance features at
+    the (compacted) coordinates [M, 3] -> [M, app_dim]."""
+    (app_f,) = sample_vm_fused(packed["app"], xyz_n)
+    return app_f @ params["basis_mat"]
 
 
 def feature2density(feat: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:

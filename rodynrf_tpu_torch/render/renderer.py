@@ -1,14 +1,23 @@
-"""Image renderer: chunked dual-field rendering of full frames, dense branch
-(port of rodynrf_tpu/render/renderer.py; reference renderer.py:24-144,
-660-966).
+"""Image renderer: chunked dual-field rendering of full frames (port of
+rodynrf_tpu/render/renderer.py; reference renderer.py:24-144, 660-966).
 
 A frame's rays go through one chunk function, chunk by chunk, under
 `torch.inference_mode()`. Sampling is deterministic (no jitter, no white
 fill). The gather tables are packed once per frame by `render_chunk.pack`,
 in the configs' dtype and layout as the train step packs them ('auto' with
-the render path's larger merged budget). Occupancy masks and compacted
-rendering are a later slice of the port (ROADMAP.md queue 1, item 2:
-compaction) and are refused.
+the render path's larger merged budget).
+
+With an occupancy mask the chunk renderer takes one of two paths:
+- dense (`compact=False`): samples whose trilinear mask value is 0 are
+  marked invalid before the field evaluations (the reference's early-out,
+  tensorBase.py:745-765);
+- compact: the nearest-voxel test on the pre-dilated volume selects the
+  chunk's occupied samples (a superset of the trilinear test's), the two
+  fields run on one flat bucket of them, sized to the chunk's count rounded
+  up to `flat_quantum` (one count read back per chunk), and the outputs
+  scatter back for the dense compositor. The superset-masked dense render
+  (`render_chunk.dense_superset`) is its exactness oracle and its fallback
+  when the bucket would not be smaller than the chunk.
 """
 
 from __future__ import annotations
@@ -21,14 +30,14 @@ import torch
 from ..core.rays import get_ray_directions_blender, get_rays, ndc_rays_blender
 from ..fields import dynamic as dyn_fields
 from ..fields import static as stat_fields
+from ..fields.alpha_mask import dilate_occupancy, occupancy_nearest
 from ..fields.config import FieldConfig
-from ..ops.compositing import raw2outputs
+from ..fields.mlps import apply_shading
+from ..fields.static import feature2density
+from ..ops.compositing import raw2alpha, raw2outputs
 from .flow import induce_flow
-from .pipeline import eval_dynamic_field, eval_static_field
+from .pipeline import _dists_and_viewdirs, _flat_index, eval_dynamic_field, eval_static_field
 from .sampling import sample_xyz
-
-_NO_MASK = ("rendering with an occupancy mask{} is not ported to rodynrf_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 2: compaction)")
 
 
 class RenderMaps(NamedTuple):
@@ -56,8 +65,8 @@ def _pack(static_cfg: FieldConfig, dynamic_cfg: FieldConfig):
 
 
 def _fields(params, packs, static_cfg, dynamic_cfg, aabb, rays, ts, ray_type, n_samples,
-            step_size):
-    xyz, z_vals, ray_valid = sample_xyz(
+            step_size, samp=None):
+    xyz, z_vals, ray_valid = samp if samp is not None else sample_xyz(
         rays, n_samples, ray_type, static_cfg.near_far, aabb, step_size, None
     )
     st = eval_static_field(params["static"], static_cfg, aabb, rays, ts, xyz, z_vals,
@@ -77,24 +86,139 @@ def make_chunk_renderer(
     step_size: float,
     alpha_mask=None,
     compact: bool = False,
+    flat_quantum: int = 16384,
 ):
     """The per-chunk render function (params, packs, aabb, rays, ts) ->
     RenderMaps, with `.pack(params)` building the frame's gather tables.
-    `alpha_mask` and `compact` raise NotImplementedError."""
-    if alpha_mask is not None:
-        raise NotImplementedError(_NO_MASK.format(" (alpha mask)"))
-    if compact:
-        raise NotImplementedError(_NO_MASK.format(" (compact eval)"))
+
+    alpha_mask: an AlphaGridMask (on any device; a copy moves to the
+    chunk's). compact: with a mask, the flat-bucket path (module
+    docstring); `.flat_fn(N)` pins the bucket size and `.dense_superset` is
+    the oracle. Without a mask `compact` renders dense, as in the JAX
+    package. `.flat_log` collects (N, occupied count, R·S) per compact
+    chunk (the caller may clear it)."""
+    masks = {}
+
+    def mask_on(device):
+        if device not in masks:
+            m = alpha_mask.to(device)
+            vol = dilate_occupancy(m.alpha_volume) if compact else None
+            masks[device] = (m, vol)
+        return masks[device]
+
+    def sample_masked(aabb, rays, ts):
+        xyz, z_vals, ray_valid = sample_xyz(
+            rays, n_samples, ray_type, static_cfg.near_far, aabb, step_size, None)
+        if alpha_mask is not None:
+            R, S, _ = xyz.shape
+            alphas = mask_on(aabb.device)[0].sample_alpha(
+                xyz.reshape(-1, 3), ts[:, None].expand(R, S).reshape(-1)).reshape(R, S)
+            ray_valid = ray_valid & (alphas > 0)
+        return xyz, z_vals, ray_valid
+
+    def finish(params, packs, aabb, rays, ts, samp) -> RenderMaps:
+        _, dn, out = _fields(params, packs, static_cfg, dynamic_cfg, aabb, rays, ts,
+                             ray_type, n_samples, step_size, samp=samp)
+        delta = torch.mean(torch.abs(dn.xyz_prime - dn.pts_ref), dim=1)
+        return RenderMaps(out.rgb_full, out.depth_full, out.rgb_s, out.depth_s,
+                          out.rgb_d, out.depth_d, out.dynamicness, delta)
+
+    def occ_probe(aabb, rays, ts):
+        """The superset selector: (xyz, z_vals, occ) of the chunk."""
+        m, vol = mask_on(aabb.device)
+        xyz, z_vals, ray_valid = sample_xyz(
+            rays, n_samples, ray_type, static_cfg.near_far, aabb, step_size, None)
+        R, S, _ = xyz.shape
+        occ = occupancy_nearest(vol, m.aabb, xyz.reshape(-1, 3),
+                                ts[:, None].expand(R, S).reshape(-1)).reshape(R, S)
+        return xyz, z_vals, ray_valid & occ
+
+    def render_flat(params, packs, aabb, rays, ts, probed, N: int) -> RenderMaps:
+        """The chunk's occupied samples in one flat [N] bucket through both
+        fields (gathers + shading MLPs), one 12-channel scatter back to [R,
+        S] (zeros where the selector dropped a sample: exactly the oracle's
+        where(occ, ., 0)), then the dense compositor."""
+        xyz, z_vals, occ = probed
+        R, S, _ = xyz.shape
+        RS = R * S
+        dists, viewdirs = _dists_and_viewdirs(rays, z_vals, ray_type)
+        idx_flat, idx_safe, rid = _flat_index(occ, N)
+        xyz_f = xyz.reshape(RS, 3).index_select(0, idx_safe)
+        t_f = ts.index_select(0, rid)
+        vd_f = viewdirs.index_select(0, rid)
+        xyz_fn = dyn_fields.normalize_coord(xyz_f, aabb)
+        p_s, p_d = params["static"], params["dynamic"]
+
+        sig_feat_s, app_s = stat_fields.all_features_fused(p_s, static_cfg, xyz_fn,
+                                                           packed=packs[0])
+        rgb_s_f = apply_shading(p_s["shading"], static_cfg.shading_mode, static_cfg.view_pe,
+                                static_cfg.fea_pe, static_cfg.pos_pe, xyz_fn, vd_f, app_s,
+                                t_f[:, None])
+        xyz_prime_f = dyn_fields.warp_coordinate(p_d, xyz_f, t_f, aabb)
+        sig_feat_d, blend_feat, app_d = dyn_fields.all_features_fused(
+            p_d, dynamic_cfg, xyz_fn, t_f, dyn_fields.normalize_coord(xyz_prime_f, aabb),
+            packed=packs[1])
+        rgb_d_f = apply_shading(p_d["shading"], dynamic_cfg.shading_mode, dynamic_cfg.view_pe,
+                                dynamic_cfg.fea_pe, dynamic_cfg.pos_pe, xyz_fn, vd_f, app_d,
+                                t_f[:, None])
+        payload = torch.cat([
+            feature2density(sig_feat_s, static_cfg)[:, None],
+            feature2density(sig_feat_d, dynamic_cfg)[:, None],
+            torch.sigmoid(blend_feat)[:, None], rgb_s_f, rgb_d_f, xyz_prime_f,
+        ], dim=-1)
+        dense = payload.new_zeros((RS + 1, payload.shape[-1]))
+        dense.index_copy_(0, idx_flat, payload)  # unused slots land in row RS
+        dense = dense[:RS]
+        sigma_s = dense[:, 0].reshape(R, S)
+        sigma_d = dense[:, 1].reshape(R, S)
+        blending = dense[:, 2].reshape(R, S)
+        xyz_prime = dense[:, 9:12].reshape(R, S, 3)
+        # the reference's app_mask: rgb zeroed below the transmittance-weight
+        # threshold, which needs the dense sigma (tensorBase.py:774-804)
+        _, w_s, _ = raw2alpha(sigma_s, dists * static_cfg.distance_scale)
+        _, w_d, _ = raw2alpha(sigma_d, dists * dynamic_cfg.distance_scale)
+        rgb_s = torch.where((w_s > static_cfg.ray_march_weight_thres)[..., None],
+                            dense[:, 3:6].reshape(R, S, 3), 0.0)
+        rgb_d = torch.where((w_d > dynamic_cfg.ray_march_weight_thres)[..., None],
+                            dense[:, 6:9].reshape(R, S, 3), 0.0)
+        out = raw2outputs(rgb_s, sigma_s, rgb_d, sigma_d, dists * dynamic_cfg.distance_scale,
+                          blending, z_vals, rays, is_train=False, ray_type=ray_type)
+        kf = occ.to(xyz.dtype)[..., None]
+        delta = torch.sum(torch.abs(xyz_prime - xyz) * kf, dim=1) / torch.clamp(
+            torch.sum(kf, dim=1), min=1.0)
+        return RenderMaps(out.rgb_full, out.depth_full, out.rgb_s, out.depth_s,
+                          out.rgb_d, out.depth_d, out.dynamicness, delta)
+
+    use_compact = compact and alpha_mask is not None
 
     def render_chunk(params, packs, aabb, rays, ts) -> RenderMaps:
         with torch.inference_mode():
-            _, dn, out = _fields(params, packs, static_cfg, dynamic_cfg, aabb, rays, ts,
-                                 ray_type, n_samples, step_size)
-            delta = torch.mean(torch.abs(dn.xyz_prime - dn.pts_ref), dim=1)
-            return RenderMaps(out.rgb_full, out.depth_full, out.rgb_s, out.depth_s,
-                              out.rgb_d, out.depth_d, out.dynamicness, delta)
+            if not use_compact:
+                return finish(params, packs, aabb, rays, ts, sample_masked(aabb, rays, ts))
+            probed = occ_probe(aabb, rays, ts)
+            RS = probed[2].numel()
+            total = int(probed[2].sum())  # the one count read back per chunk
+            N = min(RS, -(-max(total, 1) // flat_quantum) * flat_quantum)
+            render_chunk.flat_log.append((N, total, RS))
+            if N >= RS:
+                return finish(params, packs, aabb, rays, ts, probed)
+            return render_flat(params, packs, aabb, rays, ts, probed, N)
+
+    def flat_fn(N: int):
+        def call(params, packs, aabb, rays, ts):
+            with torch.inference_mode():
+                return render_flat(params, packs, aabb, rays, ts, occ_probe(aabb, rays, ts), N)
+        return call
+
+    def dense_superset(params, packs, aabb, rays, ts) -> RenderMaps:
+        with torch.inference_mode():
+            return finish(params, packs, aabb, rays, ts, occ_probe(aabb, rays, ts))
 
     render_chunk.pack = _pack(static_cfg, dynamic_cfg)
+    render_chunk.flat_log = []
+    if use_compact:
+        render_chunk.flat_fn = flat_fn
+        render_chunk.dense_superset = dense_superset
     return render_chunk
 
 

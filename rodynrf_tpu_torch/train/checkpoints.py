@@ -4,9 +4,9 @@
 The native format is the JAX package's, so a checkpoint crosses between the
 two packages either way: the parameter tree with slash-joined keys
 (`_flatten`), stored float32, plus a `__meta__` JSON header (both field
-configs, the aabb, `extra`, `format_version` 1). The occupancy mask rides
-as three opaque arrays under `__alpha__/` (shape, bit-packed volume, aabb);
-this slice reads and writes them but builds no mask.
+configs, the aabb, `extra`, `format_version` 1). An occupancy mask
+(fields/alpha_mask.AlphaGridMask) rides bit-packed under `__alpha__/`
+(shape, mask, aabb), as the JAX package stores it.
 
 The `.th` exporter writes what the reference's PyTorch code loads (its
 state_dict names and layouts plus the kwargs block, train.py:435-449,
@@ -23,13 +23,13 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ..fields.alpha_mask import AlphaGridMask, pack_alpha, unpack_alpha
 from ..fields.config import FieldConfig
 
 SEP = "/"
-ALPHA_KEYS = ("shape", "mask", "aabb")
-# FieldConfig keys of the JAX package that the port's config lacks, with the
-# one value the port accepts (None: any value, the key changes no output)
-_FOREIGN_CFG_KEYS = {"grad_impl": None, "app_frac": 0.0}
+# FieldConfig keys of the JAX package that the port's config lacks: the
+# table-gradient route, which changes no output (the port's are the kernels)
+_FOREIGN_CFG_KEYS = {"grad_impl"}
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -79,15 +79,17 @@ def save_checkpoint(
     dynamic_cfg: FieldConfig,
     aabb,
     extra: Dict[str, Any] | None = None,
-    alpha_mask: Dict[str, np.ndarray] | None = None,
+    alpha_mask: AlphaGridMask | None = None,
 ):
     """Write a native checkpoint. `params` is a nested dict/list tree of
-    tensors or arrays (floats stored f32); `alpha_mask` the opaque
-    {shape, mask, aabb} arrays of a loaded checkpoint, or None."""
+    tensors or arrays (floats stored f32); `alpha_mask` an AlphaGridMask or
+    None."""
     flat = _flatten(params)
     if alpha_mask is not None:
-        for k in ALPHA_KEYS:
-            flat[f"__alpha__/{k}"] = np.asarray(alpha_mask[k])
+        packed = pack_alpha(alpha_mask)
+        flat["__alpha__/shape"] = np.asarray(packed["alphaMask.shape"])
+        flat["__alpha__/mask"] = packed["alphaMask.mask"]
+        flat["__alpha__/aabb"] = packed["alphaMask.aabb"]
     meta = {
         "static_cfg": dataclasses.asdict(static_cfg),
         "dynamic_cfg": dataclasses.asdict(dynamic_cfg),
@@ -105,13 +107,7 @@ def _cfg_from_meta(d: Dict[str, Any]) -> FieldConfig:
     for k, v in d.items():
         if k in known:
             kw[k] = v
-        elif k in _FOREIGN_CFG_KEYS:
-            ok = _FOREIGN_CFG_KEYS[k]
-            if ok is not None and v != ok:
-                raise NotImplementedError(
-                    f"checkpoint field config {k}={v!r}: not ported to rodynrf_tpu_torch "
-                    "yet (ROADMAP.md queue 1, item 2: compaction)")
-        else:
+        elif k not in _FOREIGN_CFG_KEYS:
             raise ValueError(f"checkpoint field config has an unknown key {k!r}")
     for k in ("grid_size", "density_n_comp", "app_n_comp", "near_far"):
         kw[k] = tuple(kw[k])
@@ -120,13 +116,14 @@ def _cfg_from_meta(d: Dict[str, Any]) -> FieldConfig:
 
 def load_checkpoint(path: str, return_alpha: bool = False):
     """-> (params as numpy trees, static_cfg, dynamic_cfg, aabb, extra[,
-    alpha]) where alpha is the opaque {shape, mask, aabb} dict or None."""
+    alpha]) where alpha is an AlphaGridMask on the CPU, or None."""
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(str(data["__meta__"]))
         flat = {k: data[k] for k in data.files if k != "__meta__"}
     alpha_mask = None
     if "__alpha__/mask" in flat:
-        alpha_mask = {k: flat.pop(f"__alpha__/{k}") for k in ALPHA_KEYS}
+        alpha_mask = unpack_alpha({f"alphaMask.{k}": flat.pop(f"__alpha__/{k}")
+                                   for k in ("shape", "mask", "aabb")})
     params = _unflatten(flat)
     static_cfg = _cfg_from_meta(meta["static_cfg"])
     dynamic_cfg = _cfg_from_meta(meta["dynamic_cfg"])
@@ -234,20 +231,20 @@ def reference_kwargs(cfg: FieldConfig, aabb, poses_mtx, focal) -> Dict[str, Any]
 
 def export_th(
     path: str, params, cfg: FieldConfig, aabb, poses_mtx, focal, *, dynamic: bool,
-    alpha_mask: Dict[str, np.ndarray] | None = None,
+    alpha_mask: AlphaGridMask | None = None,
 ):
     """Write a reference-loadable .th checkpoint (train.py:2417-2426 files).
-    alpha_mask: the opaque {shape, mask, aabb} arrays, stored as the
-    reference's TensorBase.save stores its mask (tensorBase.py:465-469): the
-    bit-packed bool volume of shape [1, 1, D, H, W, T] and its aabb."""
+    alpha_mask: an AlphaGridMask, stored as the reference's TensorBase.save
+    stores its mask (tensorBase.py:465-469): the bit-packed bool volume of
+    shape [1, 1, D, H, W, T] and its aabb, at the top level."""
     sd_np = dynamic_state_dict(params, cfg) if dynamic else static_state_dict(params, cfg)
     state_dict = {k: torch.from_numpy(np.ascontiguousarray(v).copy()) for k, v in sd_np.items()}
     ckpt = {"kwargs": reference_kwargs(cfg, aabb, poses_mtx, focal), "state_dict": state_dict}
     if alpha_mask is not None:
-        ckpt["alphaMask.shape"] = (1, 1) + tuple(int(s) for s in alpha_mask["shape"])
-        ckpt["alphaMask.mask"] = np.asarray(alpha_mask["mask"])
-        ckpt["alphaMask.aabb"] = torch.tensor(np.asarray(alpha_mask["aabb"]),
-                                              dtype=torch.float32)
+        packed = pack_alpha(alpha_mask)
+        ckpt["alphaMask.shape"] = (1, 1) + tuple(int(s) for s in packed["alphaMask.shape"])
+        ckpt["alphaMask.mask"] = packed["alphaMask.mask"]
+        ckpt["alphaMask.aabb"] = torch.tensor(packed["alphaMask.aabb"], dtype=torch.float32)
     torch.save(ckpt, path)
 
 
@@ -307,14 +304,15 @@ def import_th(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         "kwargs": {k: (v.numpy() if hasattr(v, "numpy") else v) for k, v in kwargs.items()},
         "dynamic": dynamic,
     }
-    # the packed occupancy mask (reference: tensorBase.py:465-469), kept
-    # opaque in the native checkpoint's {shape, mask, aabb} form
+    # the packed occupancy mask (reference: tensorBase.py:465-469 save;
+    # its 472-484 load crashes on a missing tSize argument, so the mask is
+    # rebuilt here as an AlphaGridMask instead)
     if "alphaMask.aabb" in ckpt:
         shape = tuple(int(s) for s in ckpt["alphaMask.shape"])
         aabb_t = ckpt["alphaMask.aabb"]
-        meta["alpha_mask"] = {
-            "shape": np.asarray(shape[2:] if len(shape) == 6 else shape),
-            "mask": np.asarray(ckpt["alphaMask.mask"]),
-            "aabb": aabb_t.numpy() if hasattr(aabb_t, "numpy") else np.asarray(aabb_t),
-        }
+        meta["alpha_mask"] = unpack_alpha({
+            "alphaMask.shape": shape[2:] if len(shape) == 6 else shape,  # drop [1, 1, ...]
+            "alphaMask.mask": np.asarray(ckpt["alphaMask.mask"]),
+            "alphaMask.aabb": aabb_t.numpy() if hasattr(aabb_t, "numpy") else np.asarray(aabb_t),
+        })
     return params, meta

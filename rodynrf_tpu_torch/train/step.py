@@ -15,9 +15,12 @@ sets (SURVEY.md §3.1 passes A-G):
 The reference's detach topology is kept: every `lax.stop_gradient` of the
 JAX step is a `.detach()` at the same site, and a fully detached static
 evaluation runs under `torch.no_grad()`. Passes run one after another and
-keep their activations for the backward (store mode). The batched-pass,
-rematerialized, accumulated and compacted variants of the JAX step are later
-slices; the trainer refuses them.
+keep their activations for the backward (store mode). With an occupancy
+mask (`use_alpha_mask`) each pass's samples are masked by the mask's
+occupancy bit and, with `compact_k`, compacted to a per-ray [R, K] bucket,
+optionally evaluated through a flat bucket (`compact_flat`). The batched-pass,
+rematerialized and accumulated variants of the JAX step are later slices;
+the trainer refuses them.
 
 The three Adam optimizers (fields, pose, fov) update the parameters in
 place; their learning rates come from the host schedule on every step.
@@ -35,6 +38,7 @@ from ..core.rays import get_ray_directions_lean, get_rays_lean, ids2pixel, ndc_r
 from ..core.se3 import pose_to_mtx
 from ..fields import dynamic as dyn_field
 from ..fields import static as stat_field
+from ..fields.alpha_mask import occupancy_nearest
 from ..fields.config import FieldConfig
 from ..ops.compositing import (
     RenderOutputs,
@@ -45,7 +49,7 @@ from ..ops.compositing import (
 from ..ops.distortion import eff_distloss
 from ..ops.regularizers import line_orthogonality
 from ..render.flow import induce_flow
-from ..render.pipeline import eval_dynamic_field, eval_static_field
+from ..render.pipeline import _dists_and_viewdirs, eval_dynamic_field, eval_static_field
 from ..render.sampling import sample_xyz
 from . import losses as L
 
@@ -94,6 +98,24 @@ class StepStatics:
     # passes A/B/E share one sample set and A/B reuse E's static evaluation
     # detached (exact: the static field is time-invariant)
     share_forward: bool = True
+    # train-time occupancy mask: each pass's ray_valid is ANDed with the
+    # mask's nearest-voxel occupancy bit at (sample, t), the reference's
+    # early-out (tensorBase.py:745-765) applied to training. The pre-dilated
+    # volume rides flat in data["alpha_volume"] (uint8), its aabb in
+    # data["alpha_aabb"], its (D, H, W, T) in alpha_shape. Passes sharing
+    # one sample set (A/B/E) use the union of their per-time occupancies.
+    use_alpha_mask: bool = False
+    alpha_shape: tuple = ()
+    # with use_alpha_mask: compact each pass's samples to its per-ray [R, K]
+    # occupied bucket before the field evaluations; exact vs the
+    # dense-masked step whenever every ray's occupied count is <= K, rays
+    # beyond K drop their farthest occupied samples. 0 = dense.
+    compact_k: int = 0
+    # with compact_k: run each field evaluation's per-sample work on a flat
+    # bucket of compact_flat × R slots holding only the occupied samples,
+    # scattered back to [R, K]; exact vs the [R, K] step whenever the
+    # batch's occupied count fits, overflow samples read as empty. 0 = off.
+    compact_flat: int = 0
 
 
 def focal_from_fov(fov, H: int, W: int):
@@ -136,7 +158,8 @@ class PassSpec(NamedTuple):
       "stat":     static field only, no compositor          (FF, BB)
     gen — generator for the pass's sampler jitter (None: no jitter draw).
     white — the pass's white-fill coin (None: no fill).
-    samp — optional (xyz, z_vals, ray_valid) shared with other passes.
+    samp — optional (xyz, z_vals, ray_valid) shared with other passes, or
+      with train-time compaction (xyz, z_vals, keep, dists) (`_unpack_samp`).
     static_from — reuse the named pass's static FieldEval, detached.
     """
 
@@ -166,24 +189,66 @@ def _partial_outputs(like: torch.Tensor, R: int, nS: int, **filled) -> RenderOut
     return RenderOutputs(**defaults)
 
 
+def _unpack_samp(samp):
+    """samp is (xyz, z_vals, valid) or, with train-time compaction, (xyz,
+    z_vals, valid, dists): compacted z_vals cannot give the dense
+    consecutive-z dists, so they ride precomputed."""
+    if len(samp) == 4:
+        return samp
+    xyz, z_vals, valid = samp
+    return xyz, z_vals, valid, None
+
+
+def _occupancy(data, xyz, ts, valid, alpha_shape):
+    """valid & the mask's occupancy bit at each (sample, time): the
+    reference's early-out (tensorBase.py:745-765) as a where-mask, on
+    detached positions (a boolean carries no gradient). One gathered byte
+    per sample from the pre-dilated volume (fields/alpha_mask
+    .occupancy_nearest)."""
+    R, S_ = valid.shape
+    t_flat = ts[:, None].expand(R, S_).reshape(-1)
+    occ = occupancy_nearest(data["alpha_volume"], data["alpha_aabb"],
+                            xyz.detach().reshape(-1, 3), t_flat, shape=alpha_shape)
+    return valid & occ.reshape(R, S_)
+
+
+def _compact_samp(xyz, z_vals, occ, rays, ray_type, K: int):
+    """Per-ray [R, K] occupied bucket: a stable argsort puts the occupied
+    samples first in ascending z (transmittance order); slots past a ray's
+    count carry keep = False, so sigma = blending = rgb = 0 there. Returns
+    ((xyz_c, z_c, keep, dists_c), idx) with the dense consecutive-z dists
+    gathered at idx; xyz, z and dists ride one packed [R, S, 5] gather."""
+    dists, _ = _dists_and_viewdirs(rays, z_vals, ray_type)
+    order = torch.argsort(torch.logical_not(occ).to(torch.uint8), dim=1, stable=True)
+    idx = order[:, :K]
+    count = occ.sum(dim=1)
+    keep = torch.arange(K, device=occ.device)[None, :] < count[:, None]
+    packed = torch.cat([xyz, z_vals[..., None], dists[..., None]], dim=-1)
+    pk = torch.gather(packed, 1, idx[..., None].expand(-1, -1, 5))
+    return (pk[..., :3], pk[..., 3], keep, pk[..., 4]), idx
+
+
 def _dual_pass(params, S: StepStatics, aabb, sp: PassSpec, packs, shared_st=None):
     """Sampler + static field + dynamic field + compositor for one ray set.
     packs: (packed_static, packed_dynamic) gather tables built once per step."""
     packed_st, packed_dn = packs
     rays, ts = sp.rays, sp.ts
     if sp.samp is not None:
-        xyz, z_vals, ray_valid = sp.samp
+        xyz, z_vals, ray_valid, dists_pre = _unpack_samp(sp.samp)
     else:
         xyz, z_vals, ray_valid = sample_xyz(
             rays, S.n_samples, S.ray_type, S.static_cfg.near_far, aabb, S.step_size,
             sp.gen, det_jitter=S.golden_det,
         )
+        dists_pre = None
     R, nS = z_vals.shape
+    # flat-bucket evals apply only on compacted geometry (dists_pre marks it)
+    flat_n = S.compact_flat * R if S.compact_flat > 0 and dists_pre is not None else 0
 
     def run_dynamic():
         return eval_dynamic_field(
             params["dynamic"], S.dynamic_cfg, aabb, rays, ts, xyz, z_vals, ray_valid,
-            S.ray_type, packed=packed_dn,
+            S.ray_type, packed=packed_dn, dists=dists_pre, flat_n=flat_n,
         )
 
     if sp.mode == "dyn":
@@ -200,12 +265,12 @@ def _dual_pass(params, S: StepStatics, aabb, sp: PassSpec, packs, shared_st=None
         with torch.no_grad():
             st = eval_static_field(
                 params["static"], S.static_cfg, aabb, rays, ts, xyz, z_vals, ray_valid,
-                S.ray_type, packed=packed_st,
+                S.ray_type, packed=packed_st, dists=dists_pre, flat_n=flat_n,
             )
     else:
         st = eval_static_field(
             params["static"], S.static_cfg, aabb, rays, ts, xyz, z_vals, ray_valid,
-            S.ray_type, packed=packed_st,
+            S.ray_type, packed=packed_st, dists=dists_pre, flat_n=flat_n,
         )
 
     if sp.mode == "stat":
@@ -363,6 +428,47 @@ def train_loss(
         specs["FF"] = PassSpec(rays_f_nd, ts_train, _draws(False)[0], None, False, "stat")
         specs["BB"] = PassSpec(rays_b_nd, ts_train, _draws(False)[0], None, False, "stat")
 
+    # ---- train-time occupancy mask (+ [R, K] compaction); the trainer turns
+    # these on once update_AlphaMask_list fires with --compact_train
+    sf_pts_dense = None  # pass A's dense pre-compaction points + selection:
+    sf_idx = None        # the scene-flow regularisers keep the dense domain
+    if S.use_alpha_mask:
+        K = S.compact_k
+        done = set()
+        if S.share_forward:
+            # shared train-ray geometry: one selection for A/B/E from the
+            # union of their per-time occupancies (keeps A/B's reuse of E's
+            # static eval exact; a superset of per-pass masking)
+            xyz_sh, z_sh, valid_sh = samp_live
+            occ_u = (_occupancy(data, xyz_sh, ts_train, valid_sh, S.alpha_shape)
+                     | _occupancy(data, xyz_sh, ts_rand, valid_sh, S.alpha_shape))
+            if K > 0:
+                samp_m, sf_idx = _compact_samp(xyz_sh, z_sh, occ_u, rays_train, S.ray_type, K)
+                sf_pts_dense = sg(xyz_sh)
+            else:
+                samp_m = (xyz_sh, z_sh, occ_u)
+            specs["E"] = specs["E"]._replace(samp=samp_m)
+            samp_m_det = tuple(sg(a) for a in samp_m)
+            specs["A"] = specs["A"]._replace(samp=samp_m_det)
+            specs["B"] = specs["B"]._replace(samp=samp_m_det)
+            done |= {"A", "B", "E"}
+        for n in list(specs):
+            if n in done:
+                continue
+            sp = specs[n]
+            xyz_p, z_p, v_p = sp.samp if sp.samp is not None else sample_xyz(
+                sp.rays, S.n_samples, S.ray_type, S.static_cfg.near_far, aabb, S.step_size,
+                sp.gen, det_jitter=S.golden_det,
+            )
+            occ_p = _occupancy(data, xyz_p, sp.ts, v_p, S.alpha_shape)
+            if K > 0:
+                samp_m, idx_p = _compact_samp(xyz_p, z_p, occ_p, sp.rays, S.ray_type, K)
+                if n == "A":  # share_forward off: A owns its geometry
+                    sf_pts_dense, sf_idx = xyz_p, idx_p
+            else:
+                samp_m = (xyz_p, z_p, occ_p)
+            specs[n] = sp._replace(samp=samp_m)
+
     res = _run_passes(params, S, aabb, specs, packs)
     outA, stA, dnA, _ = res["A"]
     outB, stB, dnB, _ = res["B"]
@@ -381,14 +487,26 @@ def train_loss(
     total = total + novel_order * 10.0
     metrics["novel_order_loss"] = novel_order
 
-    # novel-time distortion (train.py:1299-1311)
+    # novel-time distortion (train.py:1299-1311); the 1/nS interval is the
+    # dense sampler spacing, also under compaction (weights axis K)
     if wts.distortion_dynamic > 0:
         dist_rand = eff_distloss(outB.weights_d, sg(dnB.z_vals), 1.0 / S.n_samples)
         total = total + dist_rand * wts.distortion_dynamic * (it / S.n_iters)
         metrics["loss_distortion_rand"] = dist_rand
 
-    # scene flow at pass-A sample points (train.py:1319-1321)
-    scene_flow_f, scene_flow_b = dyn_field.scene_flow(params["dynamic"], dnA.pts_ref, ts_train, aabb)
+    # scene flow at pass-A sample points (train.py:1319-1321). Under
+    # compaction the regularisers (small/smooth, below) keep the dense
+    # domain: the flow MLP runs at all S dense points, and only the kept
+    # samples feed the induced flows (aligned with the compacted weights_d)
+    if sf_idx is not None:
+        sf_reg_f, sf_reg_b = dyn_field.scene_flow(params["dynamic"], sf_pts_dense, ts_train, aabb)
+        pick = sf_idx[..., None].expand(-1, -1, 3)
+        scene_flow_f = torch.gather(sf_reg_f, 1, pick)
+        scene_flow_b = torch.gather(sf_reg_b, 1, pick)
+    else:
+        scene_flow_f, scene_flow_b = dyn_field.scene_flow(
+            params["dynamic"], dnA.pts_ref, ts_train, aabb)
+        sf_reg_f, sf_reg_b = scene_flow_f, scene_flow_b
 
     # RGB losses (train.py:1323-1335)
     img_loss = L.mse(outA.rgb_full, rgb_train)
@@ -433,8 +551,8 @@ def train_loss(
     metrics["flow_f_loss"] = flow_f_loss
     metrics["flow_b_loss"] = flow_b_loss
 
-    # small scene flow (train.py:1421-1429)
-    small_sf = torch.mean(torch.abs(scene_flow_f)) + torch.mean(torch.abs(scene_flow_b))
+    # small scene flow (train.py:1421-1429), dense domain
+    small_sf = torch.mean(torch.abs(sf_reg_f)) + torch.mean(torch.abs(sf_reg_b))
     total = total + wts.small_scene_flow * small_sf
     metrics["small_scene_flow_loss"] = small_sf
 
@@ -457,8 +575,8 @@ def train_loss(
     total = total + 0.04 * disp_b_loss * Temp
     metrics["disp_b_loss"] = disp_b_loss
 
-    # smooth scene flow (train.py:1627-1633)
-    smooth_sf = torch.mean(torch.abs(scene_flow_f + scene_flow_b))
+    # smooth scene flow (train.py:1627-1633), dense domain
+    smooth_sf = torch.mean(torch.abs(sf_reg_f + sf_reg_b))
     total = total + wts.smooth_scene_flow * smooth_sf
     metrics["smooth_scene_flow_loss"] = smooth_sf
 

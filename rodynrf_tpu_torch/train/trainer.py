@@ -1,39 +1,48 @@
 """Trainer: owns params, optimizers, schedules and the train step (port of
-rodynrf_tpu/train/trainer.py: `__init__`, `run_step`, `_upsample`, `train`,
-`save_full` and `_resume`; reference train.py:824-2658).
+rodynrf_tpu/train/trainer.py; reference train.py:824-2658).
 
 Runs the JAX package's default recipe: bf16 or f32 gather tables, the
 strided or merged table layout ('auto' picks per field by table bytes), and
 the voxel upsample at every `upsamp_list` iteration, after which the layout
-is chosen anew. Resumes from a native checkpoint (`--ckpt`): a full one
-(`save_full`) continues the exact trajectory, a plain one restarts the
-optimizers and replays the schedule. What the port lacks is refused with
-NotImplementedError rather than ignored, naming the ROADMAP.md queue 1 item
-that brings it: batched passes, rematerialization, gradient accumulation,
-train-time and appearance compaction, occupancy-mask updates, sharded
-grids, the table-gradient routes other than the kernels, and more than one
-device.
+is chosen anew. Builds the dual-field occupancy mask (`update_alpha_mask`,
+fired by `train` at `update_AlphaMask_list` iterations); with
+`--compact_train 1` the step then masks and compacts its samples to the
+[R, K] and flat buckets the occupancy probe sizes. `--app_frac` turns on
+appearance top-K compaction from `--app_start` (default: after the first
+upsample). Resumes from a native checkpoint (`--ckpt`), its mask included:
+a full one (`save_full`) continues the exact trajectory, a plain one
+restarts the optimizers and replays the schedule. What the port lacks is
+refused with NotImplementedError rather than ignored, naming the ROADMAP.md
+queue 1 item that brings it: batched passes, rematerialization, gradient
+accumulation, sharded grids, the table-gradient routes other than the
+kernels, and more than one device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..core.se3 import pose_to_mtx
 from ..data.scene import SceneData, default_focal
 from ..fields import FieldConfig, cal_n_samples, n_to_reso
 from ..fields import dynamic as dyn_field
 from ..fields import static as stat_field
+from ..fields.alpha_mask import build_dual_alpha_mask, dilate_occupancy, occupancy_nearest
+from ..render.sampling import sample_xyz
 from .checkpoints import load_checkpoint, save_checkpoint
 from .convert import params_from_numpy, params_to_numpy
 from .schedule import LrSchedule, PermutationSampler, n_voxel_schedule
 from .step import (
     LossWeights,
     StepStatics,
+    _rays_from_idx,
     check_device,
+    focal_from_fov,
     init_opt_state,
     make_train_step,
     named_leaves,
@@ -54,7 +63,6 @@ def init_pose_params(scene: SceneData, n_cams: int) -> np.ndarray:
 
 
 # ROADMAP.md queue 1 items that bring what the port refuses
-COMPACTION = "ROADMAP.md queue 1, item 2: compaction"
 MESH_LPIPS = "ROADMAP.md queue 1, item 3: mesh export and LPIPS"
 PARALLELISM = "ROADMAP.md queue 1, item 4: parallelism"
 
@@ -71,15 +79,6 @@ def _refuse_unported(args, device: torch.device):
         not_ported("--remat on", PARALLELISM)
     if int(getattr(args, "grad_accum", 0)) > 1:
         not_ported("--grad_accum > 1", PARALLELISM)
-    if int(getattr(args, "compact_train", 0)):
-        not_ported("--compact_train 1", COMPACTION)
-    if float(getattr(args, "app_frac", 0.0)) > 0.0:
-        not_ported("--app_frac > 0 (appearance compaction)", COMPACTION)
-    updates = [i for i in (getattr(args, "update_AlphaMask_list", None) or [])
-               if 0 < int(i) <= int(args.n_iters)]
-    if updates:
-        not_ported(f"the occupancy-mask update at iteration {updates[0]} "
-                   "(update_AlphaMask_list)", COMPACTION)
     if int(getattr(args, "shard_grids", 0)):
         not_ported("--shard_grids 1", PARALLELISM)
     if getattr(args, "grad_impl", "autodiff") != "autodiff":
@@ -174,11 +173,22 @@ class Trainer:
         }
         self.focal_fixed = float(scene.focal if scene.focal is not None else default_focal(W, H))
         self.iteration = 0
+        # occupancy mask, built at update_AlphaMask_list iterations: feeds the
+        # eval early-out, checkpoints and, with --compact_train, the step
+        self.alpha_mask = None
+        # train-time compaction: per-ray [R, K] bucket (0 = dense), flat
+        # slots per ray (0 = [R, K] evals), dims of data["alpha_volume"]
+        self.compact_k = 0
+        self.compact_flat = 0
+        self.alpha_shape = ()
         # golden-comparison hook: callable(iteration) -> (ray_idx, ray_idx_rand)
         # replacing the permutation samplers with an externally recorded stream
         self.sampler_override = None
         if getattr(args, "ckpt", None):
-            self._resume(args.ckpt)
+            sizes = self._resume(args.ckpt)
+            if self.alpha_mask is not None and int(getattr(args, "compact_train", 0)):
+                self._enable_train_compaction(sizes)
+        self._refresh_app_frac()
         self.step_fn = make_train_step(self._statics(), device=self.device)
 
     def save_full(self, path: str):
@@ -203,8 +213,12 @@ class Trainer:
             "sampler2_curr": int(self.sampler2.curr),
             "sampler_rng": self.sampler.rng.bit_generator.state,
             "sampler2_rng": self.sampler2.rng.bit_generator.state,
+            # the bucket sizes in use, so that a resumed run keeps them
+            "compact_k": self.compact_k,
+            "compact_flat": self.compact_flat,
         }
-        save_checkpoint(path, tree, self.static_cfg, self.dynamic_cfg, self.aabb, extra=extra)
+        save_checkpoint(path, tree, self.static_cfg, self.dynamic_cfg, self.aabb, extra=extra,
+                        alpha_mask=self.alpha_mask)
 
     def _resume(self, ckpt_path: str):
         """Resume from a native checkpoint. A full one (`save_full`, this
@@ -213,11 +227,13 @@ class Trainer:
         package's) restores parameters, grids and iteration with fresh
         optimizers. Both replay the learning-rate and upsample schedule up to
         the checkpoint's iteration; the tables' layout is chosen anew from
-        the checkpoint's configs ('auto' by table bytes)."""
+        the checkpoint's configs ('auto' by table bytes). The checkpoint's
+        occupancy mask is adopted. Returns the compaction bucket sizes (K,
+        F) a full checkpoint of this port recorded, else None."""
         params, static_cfg, dynamic_cfg, aabb, extra, alpha = load_checkpoint(
             ckpt_path, return_alpha=True)
         if alpha is not None:
-            not_ported("resuming with an occupancy mask", COMPACTION)
+            self.alpha_mask = alpha.to(self.device)
         full = bool(extra.get("full_state"))
         if full and "gen_state" not in params:
             raise ValueError(f"{ckpt_path}: a full checkpoint of another package; resume "
@@ -246,6 +262,9 @@ class Trainer:
                 if self.n_voxel_list:
                     self.n_voxel_list.pop(0)
                 self.schedule.on_upsample(i)
+        if full and "compact_k" in extra:
+            return int(extra["compact_k"]), int(extra["compact_flat"])
+        return None
 
     def set_params(self, params):
         """Adopt a parameter tree (moved to this trainer's device as f32
@@ -285,17 +304,27 @@ class Trainer:
             step_size=self.static_cfg.step_size(np.asarray(self.scene.scene_bbox)),
             golden_det=bool(getattr(a, "golden_det", 0)),
             share_forward=bool(getattr(a, "share_forward", 1)),
+            use_alpha_mask=self.compact_k > 0,
+            alpha_shape=self.alpha_shape,
+            compact_k=self.compact_k,
+            compact_flat=self.compact_flat,
         )
 
-    def table_layouts(self) -> Dict[str, str]:
+    def table_layouts(self) -> Dict[str, object]:
         """The gather-table layout each field's step uses at the current grid
-        ('strided' or 'merged'; 'auto' resolved by table bytes)."""
+        ('strided' or 'merged'; 'auto' resolved by table bytes); with
+        appearance compaction a field's split pack gives {"db": ..., "app":
+        ...}, each part laid out on its own."""
+        def layout(packed):
+            if isinstance(packed, dict):
+                return {k: v.meta["layout"] for k, v in packed.items()}
+            return packed.meta["layout"]
+
         with torch.no_grad():
             return {
-                "static": stat_field.pack_tables(
-                    self.params["static"], self.static_cfg).meta["layout"],
-                "dynamic": dyn_field.pack_tables(
-                    self.params["dynamic"], self.dynamic_cfg).meta["layout"],
+                "static": layout(stat_field.pack_tables(self.params["static"], self.static_cfg)),
+                "dynamic": layout(dyn_field.pack_tables(self.params["dynamic"],
+                                                        self.dynamic_cfg)),
             }
 
     def run_step(self) -> Dict[str, torch.Tensor]:
@@ -316,9 +345,151 @@ class Trainer:
         )
         self.schedule.after_step(i)
         self.iteration += 1
+        cfg_changed = self._refresh_app_frac()
         if i in self.args.upsamp_list:
             self._upsample(i)
+        elif cfg_changed:
+            self._build_step()
         return metrics
+
+    def _build_step(self):
+        self.step_fn = make_train_step(self._statics(), device=self.device)
+
+    def _app_start_eff(self) -> int:
+        """First iteration with appearance compaction active (-1 = never).
+        --app_start -1 (the default): the step after the first voxel
+        upsample, when density has concentrated enough for the per-ray top-K
+        bucket to hold the reference's above-threshold samples."""
+        a = self.args
+        if float(getattr(a, "app_frac", 0.0)) <= 0.0:
+            return -1
+        start = int(getattr(a, "app_start", -1))
+        if start >= 0:
+            return start
+        ups = sorted(a.upsamp_list)
+        return (int(ups[0]) + 1) if ups else 0
+
+    def _refresh_app_frac(self) -> bool:
+        """Set both configs' app_frac by the activation schedule; True if it
+        changed (the caller rebuilds the step)."""
+        eff = self._app_start_eff()
+        af = float(self.args.app_frac) if (eff >= 0 and self.iteration >= eff) else 0.0
+        if af == self.static_cfg.app_frac:
+            return False
+        self.static_cfg = dataclasses.replace(self.static_cfg, app_frac=af)
+        self.dynamic_cfg = dataclasses.replace(self.dynamic_cfg, app_frac=af)
+        return True
+
+    def update_alpha_mask(self) -> float:
+        """Rebuild the dual-field occupancy mask at the current parameters
+        (reference updateAlphaMask contract, tensorBase.py:591-629; dual-max
+        semantics, fields/alpha_mask.build_dual_alpha_mask). With
+        --compact_train, also (re)sizes and enables the step's compaction
+        against the fresh mask. Returns the occupied share of the volume."""
+        params = {"static": self.params["static"], "dynamic": self.params["dynamic"]}
+        self.alpha_mask = build_dual_alpha_mask(
+            params, self.static_cfg, self.dynamic_cfg, self.aabb.cpu().numpy(),
+            n_frames=self.scene.n_frames, thres=self.args.alpha_mask_thre,
+        )
+        occ = float(self.alpha_mask.alpha_volume.float().mean())
+        print(f"alpha mask updated: grid {tuple(self.alpha_mask.alpha_volume.shape)} "
+              f"occupancy {occ:.3f}")
+        if int(getattr(self.args, "compact_train", 0)):
+            self._enable_train_compaction()
+        return occ
+
+    def _dilated_volume(self) -> torch.Tensor:
+        """The step's occupancy volume: the mask pre-dilated one extra 3³
+        max-pool, so the single-gather nearest-voxel test keeps a superset of
+        the reference's trilinear early-out (fields/alpha_mask
+        .dilate_occupancy). Eval and render keep the trilinear mask."""
+        return dilate_occupancy(self.alpha_mask.alpha_volume)
+
+    def _probe_compact_k(self, stride: int = 3, margin: float = 1.1,
+                         quantum: int = 16) -> tuple:
+        """Size the step's buckets from the occupancy over a strided probe of
+        every frame's pixels at the current cameras, jitter-free. Returns
+        (K, flat_per_ray).
+
+        K: the --compact_quantile (default 0.995) quantile of the per-ray
+        occupied counts × margin, rounded up to `quantum`, in [quantum, S];
+        rays above K drop their farthest occupied samples. flat_per_ray: the
+        mean of the union occupancy (train time | an independent random
+        time per ray, as the shared A/B/E geometry uses) plus 4 batch sigma,
+        × margin, rounded up to 8. The random times come from
+        np.random.default_rng(0), as in the JAX package, so both packages
+        size the same buckets from the same scene and weights."""
+        H, W, T = self.H, self.W, self.args.N_voxel_t
+        S = self._statics()
+        vol_d = self._dilated_volume()
+        maabb = self.alpha_mask.aabb
+        uu, vv = np.meshgrid(np.arange(0, W, stride), np.arange(0, H, stride))
+        pix = np.ascontiguousarray((vv * W + uu).reshape(-1).astype(np.int64))
+        rng = np.random.default_rng(0)
+        all_ts = self.data["ts"][:: H * W].cpu().numpy()  # one t per frame
+        cs, cus = [], []
+        with torch.no_grad():
+            if S.optimize_focal:
+                focal = focal_from_fov(self.params["fov"][0, 0], H, W)
+            else:
+                focal = self.aabb.new_tensor(self.focal_fixed)
+            poses = pose_to_mtx(self.params["pose"])
+            for t in range(T):
+                idx = torch.as_tensor(t * H * W + pix, device=self.device)
+                ts_rand = torch.as_tensor(rng.choice(all_ts, size=pix.shape[0]),
+                                          device=self.device)
+                rays, _, _, _ = _rays_from_idx(idx, poses, focal, S)
+                xyz, _, valid = sample_xyz(rays, self.n_samples, S.ray_type,
+                                           S.static_cfg.near_far, self.aabb, S.step_size, None)
+                R_, S_ = valid.shape
+                flat3 = xyz.reshape(-1, 3)
+                occ = occupancy_nearest(vol_d, maabb, flat3, self.data["ts"][idx][:, None]
+                                        .expand(R_, S_).reshape(-1)).reshape(R_, S_)
+                occ_u = occ | occupancy_nearest(
+                    vol_d, maabb, flat3, ts_rand[:, None].expand(R_, S_).reshape(-1)
+                ).reshape(R_, S_)
+                cs.append((valid & occ).sum(1).cpu().numpy())
+                cus.append((valid & occ_u).sum(1).cpu().numpy())
+        counts, counts_u = np.concatenate(cs), np.concatenate(cus)
+        q = float(getattr(self.args, "compact_quantile", 0.995))
+        c_q = float(np.quantile(counts, min(max(q, 0.0), 1.0)))
+        K = int(-(-c_q * margin // quantum) * quantum)
+        K = min(max(K, quantum), self.n_samples)
+        B = max(int(self.args.batch_size), 1)
+        f_budget = (counts_u.mean() + 4.0 * counts_u.std() / np.sqrt(B)) * margin
+        F = int(-(-f_budget // 8) * 8)
+        F = min(max(F, 8), self.n_samples)
+        print(f"compaction probe: occupied mean {counts.mean():.1f} "
+              f"(union {counts_u.mean():.1f}) p{100 * q:g} {c_q:.0f} "
+              f"max {counts_u.max()} of {self.n_samples} samples/ray -> K={K} flat={F}")
+        return K, F
+
+    def _enable_train_compaction(self, sizes=None):
+        """Wire the mask into the step: the dilated volume rides flat in
+        `data`, K and F come from the probe (or `sizes`, those a full
+        checkpoint recorded), and the step is rebuilt. Stays dense when K
+        would not shrink the sample axis by at least 15%; the flat bucket is
+        used only when F < 0.85 K."""
+        K, F = sizes if sizes is not None else self._probe_compact_k()
+        self.data = {k: v for k, v in self.data.items() if not k.startswith("alpha_")}
+        if K <= 0 or K >= self.n_samples or K > 0.85 * self.n_samples:
+            self.compact_k = self.compact_flat = 0
+            self.alpha_shape = ()
+            print(f"train compaction disabled (K={K} of {self.n_samples})")
+        else:
+            vol_d = self._dilated_volume()
+            self.alpha_shape = tuple(int(s) for s in vol_d.shape)
+            self.data["alpha_volume"] = vol_d.reshape(-1)
+            self.data["alpha_aabb"] = self.alpha_mask.aabb
+            self.compact_k = K
+            if sizes is not None:
+                self.compact_flat = F
+            else:
+                self.compact_flat = (F if int(getattr(self.args, "compact_flat", 1))
+                                     and F < 0.85 * K else 0)
+            print(f"train compaction enabled: K={K} flat={self.compact_flat} "
+                  f"of {self.n_samples} samples/ray")
+        self._build_step()
 
     def _upsample(self, iteration: int):
         """Coarse-to-fine grid growth (reference: train.py:2582-2606). The
@@ -340,18 +511,28 @@ class Trainer:
         self.schedule.on_upsample(iteration)
         fresh = init_opt_state(self.params)
         self.opt_state = dict(self.opt_state, fields=fresh["fields"])
-        self.step_fn = make_train_step(self._statics(), device=self.device)
+        if self.compact_k:
+            # the buckets were sized for the old sample count: re-probe the
+            # (unchanged) mask at the new one
+            self._enable_train_compaction()
+        else:
+            self._build_step()
 
     def train(self, n_steps: Optional[int] = None, log_every: int = 100, logger=None):
-        """Run n_steps (default: to n_iters). `logger`, if given, gets a dict
-        of host floats every `log_every` iterations and after the first,
-        the only points at which metrics are read back from the device.
-        Returns the last step's metrics as host floats."""
+        """Run n_steps (default: to n_iters), rebuilding the occupancy mask
+        after each iteration whose number (counted from 1) is in
+        update_AlphaMask_list, as the CLI's loop does. `logger`, if given,
+        gets a dict of host floats every `log_every` iterations and after
+        the first, the only points at which metrics are read back from the
+        device. Returns the last step's metrics as host floats."""
         n = n_steps if n_steps is not None else self.args.n_iters - self.iteration
+        updates = set(self.args.update_AlphaMask_list or [])
         t0 = time.time()
         metrics = {}
         for _ in range(n):
             metrics = self.run_step()
+            if self.iteration in updates:
+                self.update_alpha_mask()
             if logger is not None and (self.iteration % log_every == 0 or self.iteration == 1):
                 host = {k: float(v) for k, v in metrics.items()}
                 host["iter"] = self.iteration

@@ -8,10 +8,16 @@ at the golden fixture's size (4 frames of 24×32, golden/tiny.txt).
 - --render_only from the saved .npz reproduces the final evaluation's
   per-frame PSNRs exactly, and --render_path 1 writes the five path
   families.
+- With an update_AlphaMask_list entry and --compact_train 1 (a 32³ grid,
+  28 samples per ray, a threshold inside the random fields' alpha) the
+  mask is built mid-run, the step compacts against it, the checkpoints
+  carry it, and --render_only from the .npz reproduces the in-training
+  evaluation's PSNRs exactly; --alpha_mask <npz> of the same mask gives
+  them too with --compact_eval 1, and renders the dense masked path with
+  --compact_eval 0.
 - What the port does not have yet is refused with NotImplementedError
-  naming its ROADMAP item: --export_mesh 1, --compact_eval 1 and
-  --alpha_mask (an occupancy mask to render with), an update_AlphaMask_list
-  entry inside n_iters. `python -m rodynrf_tpu_torch` refuses without a card.
+  naming its ROADMAP item: --export_mesh 1. `python -m rodynrf_tpu_torch`
+  refuses without a card.
 """
 
 import os
@@ -94,13 +100,60 @@ def test_render_only_reproduces_the_final_evaluation(run):
         assert len(os.listdir(exp / name / "rgbd_npy")) == n, name
 
 
+MASKED = ("--update_AlphaMask_list", "2", "--compact_train", "1", "--N_voxel_init", "32768",
+          "--N_voxel_final", "32768", "--nSamples", "64", "--alpha_mask_thre", "0.04",
+          "--compact_quantile", "0.5", "--expname", "masked")
+
+
+@pytest.fixture(scope="module")
+def masked_run(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("cli_masked")
+    shutil.copytree(FIXTURE, tmp / "data")
+    return tmp, main(_argv(tmp, *MASKED), device="cpu")
+
+
+def test_mask_update_compacts_the_step_and_rides_the_checkpoints(masked_run):
+    from rodynrf_tpu_torch.train.checkpoints import import_th, load_checkpoint
+
+    tmp, rep = masked_run
+    assert rep["compaction"]["mask"] and 0 < rep["compaction"]["k"] < 28
+    assert len(rep["losses"]) == 2 and all(np.isfinite(rep["losses"]))
+    assert len(rep["psnrs"]) == 4 and all(np.isfinite(rep["psnrs"]))
+    exp = tmp / "log" / "masked"
+    *_, mask = load_checkpoint(str(exp / "masked.npz"), return_alpha=True)
+    assert mask is not None and 0 < float(mask.alpha_volume.float().mean()) < 1
+    _, meta = import_th(str(exp / "masked.th"))
+    assert torch.equal(meta["alpha_mask"].alpha_volume, mask.alpha_volume)
+
+
+@pytest.mark.parametrize("compact", ["1", "0"])
+def test_masked_checkpoint_renders_its_evaluation(masked_run, compact):
+    """--render_only of the .npz (its own mask) and with --alpha_mask of the
+    same mask as a standalone .npz: the evaluation's PSNRs exactly with
+    --compact_eval 1 (the evaluation's own path); the dense masked path with
+    --compact_eval 0."""
+    from rodynrf_tpu_torch.train.checkpoints import load_checkpoint
+
+    tmp, rep = masked_run
+    exp = tmp / "log" / "masked"
+    *_, mask = load_checkpoint(str(exp / "masked.npz"), return_alpha=True)
+    standalone = tmp / "mask.npz"
+    vol = mask.alpha_volume.numpy() > 0
+    np.savez(standalone, alphaMask_shape=np.asarray(vol.shape),
+             alphaMask_mask=np.packbits(vol.reshape(-1)), alphaMask_aabb=mask.aabb.numpy())
+    render = ("--render_only", "1", "--render_test", "1", "--compact_eval", compact)
+    own = main(_argv(tmp, *MASKED, *render), device="cpu")
+    given = main(_argv(tmp, *MASKED, *render, "--alpha_mask", str(standalone)), device="cpu")
+    assert own["psnrs"] == given["psnrs"]
+    if compact == "1":
+        assert own["psnrs"] == rep["psnrs"]
+        assert own["flat_log"] and all(n < rs for n, _, rs in own["flat_log"])
+    else:
+        assert not own["flat_log"] and all(np.isfinite(own["psnrs"]))
+
+
 @pytest.mark.parametrize("extra,match", [
     (("--export_mesh", "1"), "export_mesh"),
-    (("--update_AlphaMask_list", "3"), "occupancy-mask update"),
-    (("--render_only", "1", "--render_test", "1", "--compact_eval", "1", "--alpha_mask", "m.npz"),
-     "compact_eval"),
-    (("--render_only", "1", "--render_test", "1", "--compact_eval", "0", "--alpha_mask", "m.npz"),
-     "occupancy mask"),
 ])
 def test_unported_options_are_refused(run, extra, match):
     tmp, _ = run

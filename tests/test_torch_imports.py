@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_builds_nothing():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     expected = {"rodynrf_tpu_torch.ops.coalesced", "rodynrf_tpu_torch.ops.fused_vm",
                 "rodynrf_tpu_torch.ops.segsum", "rodynrf_tpu_torch.train.step",
-                "rodynrf_tpu_torch.train.trainer"}
+                "rodynrf_tpu_torch.train.trainer", "rodynrf_tpu_torch.fields.alpha_mask",
+                "rodynrf_tpu_torch.ops.compaction"}
     assert expected <= set(res["modules"])
     assert res["bad"] == []
     assert res["started"] == []

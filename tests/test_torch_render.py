@@ -20,7 +20,7 @@ package's, on the same inputs at the TINY shapes.
   package's numpy versions; generate_path, generate_follow_spiral, the
   full-image rays and the Procrustes camera alignment to 1e-6 (1e-5 for the
   alignment's float32 SVD products).
-- The renderer refuses an occupancy mask and compacted rendering.
+- Masked and compact rendering: test_torch_render_compact.py.
 """
 
 import dataclasses
@@ -125,12 +125,6 @@ def test_vis_renderer_matches_jax(setup):
     assert set(ours) == set(ref) and len(ref) == 12
     _compare(name, ours, ref, ref_ulp, TOL[name])
 
-
-def test_renderer_refuses_masks():
-    cfg = _setup(" --vm_layout strided")[0]
-    for kw in ({"alpha_mask": object()}, {"compact": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trend.make_chunk_renderer(cfg.static_cfg, cfg.dynamic_cfg, "ndc", 8, 0.1, **kw)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

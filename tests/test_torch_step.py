@@ -205,8 +205,7 @@ def test_shared_and_unshared_forward_agree():
 
 @pytest.mark.parametrize("flag", [
     "--fused_passes 1", "--remat on", "--grad_accum 2",
-    "--compact_train 1", "--app_frac 0.5", "--n_devices 2", "--ckpt some.npz",
-    "--grad_impl csum", "--shard_grids 1", "--update_AlphaMask_list 16",
+    "--n_devices 2", "--ckpt some.npz", "--grad_impl csum", "--shard_grids 1",
 ])
 def test_unported_options_raise(flag):
     # resuming is ported: a checkpoint that is not there is a missing file
