@@ -69,6 +69,27 @@ result):
          the superset-masked dense oracle, and a `render_compact` line
          (ms/frame, rays/s, the flat bucket's N and occupied share per
          chunk, peak GiB);
+  10. the step's memory options (the JAX trainer's auto rules, ported):
+     10a. (after 4c) three more paths at 300³, each with counts, steps and
+         a profile like 4b: `accum4` (the recipe's default: its 640³
+         N_voxel_final makes --grad_accum 0 take 4 micro-batches of 256
+         rays), `fused` (--fused_passes 1, pass_chunk and remat auto) and
+         `remat` (--remat on). The paths 4-4c, 7 and 9 pass --grad_accum 1
+         --remat off: the single batch of 1024 rays in store mode that
+         their records hold (on one batch the auto rule would
+         rematerialize);
+     10b. (after 9) the recipe as it stands, 16³ to 640³: the first grid
+         and each of the seven upsamples, 2 steps each, with one `walk_size`
+         line per grid (samples per ray, policies, table bytes, ms/step,
+         peak reset per size); at 640³ one step on a single batch of 1024
+         rays (--grad_accum 1) rematerialized, as the auto rule resolves it,
+         and one in store mode, each with its peak; a profiled step and a
+         full checkpoint save;
+     10c. both kernels held to their plain versions at one 640³
+         micro-batch's shapes (the segment sum at the merged layout's:
+         'auto' puts the 640³ dynamic field on the strided one);
+     10d. (inside phase 5) the TINY accumulated, batched and
+         rematerialized steps on the card against the CPU;
   6. (printed last) a `main_path` JSON line per path, one JSON line of
      kernels, the nvidia-smi line, and the result line.
 
@@ -97,8 +118,24 @@ RECIPE = [
     "--config", str(Path(__file__).resolve().parent / "configs" / "Nvidia_no_poses.txt"),
     "--dataset_name", "synthetic", "--N_voxel_init", "27000000",
 ]
-CONFIG_F32 = RECIPE + ["--bf16", "0", "--vm_layout", "strided"]
-CONFIG_DEFAULT = RECIPE  # --bf16 1 --vm_layout auto: the recipe's defaults
+# The recipe's N_voxel_final (640³) makes the auto rules take 4
+# micro-batches (grad_accum 0 -> 4) and, on one batch, rematerialization;
+# the 300³ operating points of PERF.md §5 are single batches of 1024 rays in
+# store mode, so they ask for that.
+ONE_BATCH = ["--grad_accum", "1", "--remat", "off"]
+CONFIG_F32 = RECIPE + ONE_BATCH + ["--bf16", "0", "--vm_layout", "strided"]
+CONFIG_DEFAULT = RECIPE + ONE_BATCH  # --bf16 1 --vm_layout auto: the recipe's defaults
+# phase 10a: the step's memory options at 300³, beside the default path
+CONFIG_MEMORY = {
+    "accum4": RECIPE,  # the auto rules: 4 micro-batches of 256 rays, store mode
+    "fused": RECIPE + ["--grad_accum", "1", "--fused_passes", "1"],  # pass_chunk, remat auto
+    "remat": RECIPE + ["--grad_accum", "1", "--remat", "on"],
+}
+# phase 10b: the recipe as it stands (16³ -> 640³ over upsamp_list), every
+# auto policy on
+CONFIG_WALK = RECIPE[:4]
+WALK_STEPS = 2
+WALK_FINAL_GRID = (706, 786, 471)  # 640³ over the synthetic scene's aabb
 SCENE = dict(T=12, H=270, W=480)
 CLI_SCENE = dict(T=12, H=540, W=960)  # on disk; --downsample_train 2 -> 270×480
 CLI_STEPS = 3
@@ -106,8 +143,8 @@ CLI_VOXELS = "27000000"  # the 300³ grid, as phases 4-4c
 # the committed converged-scene occupancy mask (192³ × 12, 38.8% occupied)
 MASK_NPZ = str(Path(__file__).resolve().parent / "golden" / "out_quality" / "no_poses"
                / "alpha_mask.npz")
-CONFIG_COMPACT = RECIPE + ["--compact_train", "1"]
-CONFIG_APP = RECIPE + ["--app_frac", "0.25", "--app_start", "0"]
+CONFIG_COMPACT = RECIPE + ONE_BATCH + ["--compact_train", "1"]
+CONFIG_APP = RECIPE + ONE_BATCH + ["--app_frac", "0.25", "--app_start", "0"]
 ORACLE_RTOL, ORACLE_ATOL = 2e-5, 2e-6  # compact chunk vs its dense oracle (the JAX contract)
 GOLDEN_GRAD_RTOL, GOLDEN_MIN_PSNR = 1e-3, 50.0
 WARM_STEPS, TIMED_STEPS = 2, 5
@@ -271,9 +308,11 @@ def ptxas_summary(report: str):
             for n, v in zip(names, out.values())]
 
 
-def sample_points(tr):
+def sample_points(tr, n_rays=None):
     """The first batch's sample points (pass E's, jitter-free) normalised
-    for the static field, and their warped positions for the dynamic one."""
+    for the static field, and their warped positions for the dynamic one;
+    the batch's first `n_rays` rays (default all: one micro-batch's with
+    accumulation)."""
     from rodynrf_tpu_torch.core.se3 import pose_to_mtx
     from rodynrf_tpu_torch.fields import dynamic as dyn
     from rodynrf_tpu_torch.render.sampling import sample_xyz
@@ -282,7 +321,7 @@ def sample_points(tr):
 
     S, p = tr.step_fn.S, tr.params
     ids = PermutationSampler(tr.scene.n_rays, tr.args.batch_size, tr.args.seed).nextids()
-    ray_idx = torch.as_tensor(ids).to(tr.device)
+    ray_idx = torch.as_tensor(ids[:n_rays]).to(tr.device)
     with torch.no_grad():
         focal = focal_from_fov(p["fov"][0, 0], S.H, S.W)
         rays, _, _, _ = _rays_from_idx(ray_idx, pose_to_mtx(p["pose"]), focal, S)
@@ -366,18 +405,18 @@ def coalesce_cases(tr, gen, points=None, fields=("static", "dynamic")):
     return cases
 
 
-def segsum_cases(tr, gen, points=None):
+def segsum_cases(tr, gen, points=None, cfg=None):
     """(name, rows, w, ct, R, table dtype) at the three merged table-gradient
-    shapes of the default path's dynamic field: rows from the merged row map
-    at the warped sample points (`points`, default the first batch's), the
-    step's corner weights w and a seeded ct."""
+    shapes of the default path's dynamic field (or of `cfg`): rows from the
+    merged row map at the warped sample points (`points`, default the first
+    batch's), the step's corner weights w and a seeded ct."""
     from rodynrf_tpu_torch.fields import dynamic as dyn
     from rodynrf_tpu_torch.ops.fused_vm import merged_rows_weights
 
     S = tr.step_fn.S
     _, warped = points if points is not None else sample_points(tr)
     with torch.no_grad():
-        packed = dyn.pack_tables(tr.params["dynamic"], S.dynamic_cfg)
+        packed = dyn.pack_tables(tr.params["dynamic"], cfg or S.dynamic_cfg)
     assert packed.meta["layout"] == "merged"
     cases = []
     for o in range(3):
@@ -523,26 +562,28 @@ def check_segsum(tr):
     return results
 
 
-def _kernel_case(kind, name, field, M, R, C, out, err, scale, ms, plain_ms, library_ms,
+def _kernel_case(label, kind, name, field, M, R, C, out, err, scale, ms, plain_ms, library_ms,
                  bound):
     case = dict(case=name, field=field, M=M, R=R, C=C, out=str(out).replace("torch.", ""),
                 max_abs_err=err, tol=KERNEL_RTOL * scale, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1])
-    log(f"[compact kernel] {kind} {name}: M={M} R={R} C={C} out {case['out']} "
+    log(f"[{label} kernel] {kind} {name}: M={M} R={R} C={C} out {case['out']} "
         f"max_abs_err={err:.3e} (tol {case['tol']:.3e}); kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound {bound[0]:.4f} ms "
         f"({bound[1]})")
     if not err <= case["tol"]:
         raise AssertionError(f"{kind} kernel disagrees with its plain version at the "
-                             f"compacted shape {name}")
+                             f"{label} shape {name}")
     return case
 
 
-def check_compacted_kernels(tr, points):
-    """Both kernels held to their plain versions at the compacted step's
-    shapes (M = the rows its field evaluations sample, `compact_points`):
-    the coalesce kernel at each strided field's three orientations, in the
-    table dtype; the factored segment sum at the merged field's three.
+def check_kernels_at(tr, points, label, merged_cfg=None):
+    """Both kernels held to their plain versions at the shapes a step's
+    field evaluations give them (M = the rows at `points`: the compacted
+    step's, `compact_points`, or one micro-batch's, `sample_points`): the
+    coalesce kernel at each strided field's three orientations, in the
+    table dtype; the factored segment sum at the merged field's three, or
+    at those of `merged_cfg` when the step's dynamic field is strided.
     Kernel, plain and index_add_ times (CUDA events) and the bound."""
     from rodynrf_tpu_torch.ops import coalesced as tco
     from rodynrf_tpu_torch.ops import segsum as tseg
@@ -562,22 +603,23 @@ def check_compacted_kernels(tr, points):
         upd = (w4[:, :, None] * ct[:, None, :]).reshape(M, 4 * C)
         acc = torch.zeros((R, 4 * C), device=tr.device)
         cases.append(_kernel_case(
-            "coalesce_table_grad", name, name.split()[0], M, R, C, out,
+            label, "coalesce_table_grad", name, name.split()[0], M, R, C, out,
             float((got - want).abs().max()), float(want.abs().max()),
             median_ms(lambda: tco.coalesce_table_grad(rows, w4, ct, R, out))[0],
             median_ms(lambda: tco.coalesce_table_grad_plain(rows, w4, ct, R, out))[0],
             median_ms(lambda: acc.index_add_(0, rows, upd))[0],
             coalesce_bound_ms(M, R, C, torch.empty((), dtype=out).element_size())))
         del upd, acc, got, want
-    if layouts["dynamic"] == "merged":
-        for name, rows, w, ct, R, dtype in segsum_cases(tr, gen, points):
+    if layouts["dynamic"] == "merged" or merged_cfg is not None:
+        cfg = None if layouts["dynamic"] == "merged" else merged_cfg
+        for name, rows, w, ct, R, dtype in segsum_cases(tr, gen, points, cfg):
             M, nS, C = ct.shape
             got = tseg.segment_rows_sum_factored(rows, w, ct, R, dtype, torch.float32)
             want = tseg.segment_rows_sum_factored_plain(rows, w, ct, R, dtype, torch.float32)
             torch.cuda.synchronize()
             u = tseg.factored_update(w, ct, dtype)
             cases.append(_kernel_case(
-                "segment_rows_sum", name, "dynamic", M, R, nS * 4 * C, dtype,
+                label, "segment_rows_sum", name, "dynamic", M, R, nS * 4 * C, dtype,
                 float((got - want).abs().max()), float(want.abs().max()),
                 median_ms(lambda: tseg.segment_rows_sum_factored(rows, w, ct, R, dtype))[0],
                 median_ms(lambda: tseg.segment_rows_sum_factored_plain(rows, w, ct, R,
@@ -633,7 +675,7 @@ def drive_compaction(scene, smi: str, device: str = "cuda"):
         f"{float(tr.alpha_mask.alpha_volume.float().mean()):.4f}: K={S.compact_k} "
         f"flat={S.compact_flat} of {S.n_samples} samples/ray (probe + enable {enable_s:.2f} s)")
     points, ops = compact_points(tr)
-    cases = check_compacted_kernels(tr, points)
+    cases = check_kernels_at(tr, points, "compact")
     with torch.no_grad():  # the selection ops of one pass, at the step's shapes
         op_ms = {k: median_ms(fn)[0] for k, fn in ops.items()}
     log(f"[compact] selection ops of one pass ({tr.args.batch_size} rays x {S.n_samples} "
@@ -665,7 +707,8 @@ def drive_compaction(scene, smi: str, device: str = "cuda"):
     launches = counters()
     if launches != {k: 2 * v for k, v in per_step.items()}:
         raise AssertionError(f"app_frac: launches {launches} != 2 x {per_step}")
-    app = {"path": "app_frac", "layouts": layouts, "app_topk": S.dynamic_cfg.app_topk(S.n_samples),
+    app = {"path": "app_frac", **policies(S), "layouts": layouts,
+           "app_topk": S.dynamic_cfg.app_topk(S.n_samples),
            "n_samples": S.n_samples, "ms_per_step": app_s * 1e3, "steps": 2,
            "launches": launches, "launches_per_step": per_step,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "card": smi}
@@ -681,20 +724,36 @@ def drive_compaction(scene, smi: str, device: str = "cuda"):
 def launches_per_step(S, layouts) -> dict:
     """Table-gradient launches in one step, per kernel: one per orientation
     of every field evaluation that carries a gradient (one gather covers all
-    strides); a strided field's go to the coalesce kernel, a merged field's
-    to the segment-sum kernel. Sequential passes: static E (+ F, G, FF, BB
-    with pose optimisation), dynamic A, B, C, D; A/B reuse E's static eval
-    detached. A field's split pack (appearance compaction) launches its
-    density part in each of those evaluations and its appearance part only
-    where a loss reads the rgb (static E, dynamic A: the other passes' losses
-    read weights and depths), each part by its own layout."""
-    evals = {"static": 1 + (4 if S.optimize_poses else 0), "dynamic": 4}
+    strides), times the micro-batches; a strided field's go to the coalesce
+    kernel, a merged field's to the segment-sum kernel. Sequential passes:
+    static E (+ F, G, FF, BB with pose optimisation), dynamic A, B, C, D; A/B
+    reuse E's static eval detached. Batched passes: one static evaluation
+    with a gradient, one dynamic evaluation per chunk of pass_chunk of the
+    passes A, B, C, D. A field's split pack (appearance compaction) launches
+    its density part in each of those evaluations and its appearance part
+    only where a loss reads the rgb (sequential: static E, dynamic A; batched:
+    the static evaluation and each dynamic chunk holding A or B, whose rows
+    share the dual compositor), each part by its own layout."""
+    if S.fused_passes:
+        chunk = S.pass_chunk if 0 < S.pass_chunk < 4 else 4
+        evals = {"static": 1, "dynamic": -(-4 // chunk)}
+        app = {"static": 1, "dynamic": -(-2 // chunk)}
+    else:
+        evals = {"static": 1 + (4 if S.optimize_poses else 0), "dynamic": 4}
+        app = {"static": 1, "dynamic": 1}
     out = {k: 0 for k in KERNELS}
     for field, n in evals.items():
         parts = layouts[field] if isinstance(layouts[field], dict) else {"": layouts[field]}
         for part, layout in parts.items():
-            out["segsum" if layout == "merged" else "coalesce"] += 3 * (1 if part == "app" else n)
+            kernel = "segsum" if layout == "merged" else "coalesce"
+            out[kernel] += 3 * (app[field] if part == "app" else n) * S.grad_accum
     return out
+
+
+def policies(S) -> dict:
+    """The step's resolved memory options (Trainer auto rules)."""
+    return {"grad_accum": S.grad_accum, "remat": S.remat, "fused_passes": S.fused_passes,
+            "pass_chunk": S.pass_chunk}
 
 
 def counters():
@@ -728,10 +787,11 @@ def run_steps(tr, n: int, label: str):
     return history
 
 
-def drive_path(tr, path: str, smi: str, kernel_ms_per_step: float):
+def drive_path(tr, path: str, smi: str, kernel_ms_per_step):
     """The main path of one configuration: counts set to 0, 2 warm + 5 timed
     steps, counts read, then one profiled step. Prints and returns its
-    `main_path` record."""
+    `main_path` record (`kernel_ms_per_step`: the kernel checks' sum for
+    this step's shapes, or None where they were not timed)."""
     S = tr.step_fn.S
     layouts = tr.table_layouts()
     per_step = launches_per_step(S, layouts)
@@ -746,7 +806,8 @@ def drive_path(tr, path: str, smi: str, kernel_ms_per_step: float):
     launches = counters()
     peak = torch.cuda.max_memory_allocated()
     log(f"[{path}] {step_s * 1e3:.1f} ms/step, {tr.args.batch_size / step_s:.1f} rays/s, "
-        f"peak memory {peak / 2**30:.2f} GiB, layouts {layouts}, launches {launches} ({smi})")
+        f"peak memory {peak / 2**30:.2f} GiB, layouts {layouts}, {policies(S)}, launches "
+        f"{launches} ({smi})")
     for k in KERNELS:
         if launches[k] != per_step[k] * n_steps:
             raise AssertionError(f"{path}: {k} launches {launches[k]} != {per_step[k]} x "
@@ -757,7 +818,7 @@ def drive_path(tr, path: str, smi: str, kernel_ms_per_step: float):
     prof = profile_step(tr)
     record = {
         "path": path, "layouts": layouts, "grid": list(S.static_cfg.grid_size),
-        "n_samples": S.n_samples, "ms_per_step": step_s * 1e3,
+        **policies(S), "n_samples": S.n_samples, "ms_per_step": step_s * 1e3,
         "rays_per_s": tr.args.batch_size / step_s, "peak_gib": peak / 2**30,
         "steps": n_steps, "timed_steps": TIMED_STEPS, "launches": launches,
         "launches_per_step": per_step, "table_grad_kernel_ms_per_step": kernel_ms_per_step,
@@ -804,7 +865,7 @@ def cross_upsample(tr, smi: str):
     if launches != {k: 2 * v for k, v in per_step.items()}:
         raise AssertionError(f"after the upsample: launches {launches} != 2 x {per_step}")
     record = {
-        "path": "default_upsample", "grid_before": list(S_old.static_cfg.grid_size),
+        "path": "default_upsample", **policies(S), "grid_before": list(S_old.static_cfg.grid_size),
         "grid": grid, "n_samples_before": S_old.n_samples, "n_samples": S.n_samples,
         "layouts_before": old_layouts, "layouts": layouts,
         "crossing_step_s": cross_s, "crossing_launches": crossing,
@@ -847,10 +908,12 @@ def profile_step(tr, top: int = 16):
             "device_launches": n_launches, "table_grad_device_ms": tg_ms}
 
 
-def small_input_reference():
+def small_input_reference(device: str = "cuda"):
     """TINY step on the card vs on the CPU from the same weights, for the f32
-    strided path, the bf16 auto path (dynamic merged) and the bf16 path
-    across the TINY upsample at iteration 8. A step from identical weights
+    strided path, the memory options (accumulation, batched passes,
+    rematerialization; phase 10d), the bf16 auto path (dynamic merged) and
+    the bf16 path across the TINY upsample at iteration 8. (`device` lets
+    the phase be rehearsed on the CPU.) A step from identical weights
     agrees to 1e-4 (f32 sums in another order); a step after one update to
     1e-3, since Adam's scale-free update turns ulp-level gradient
     differences into lr-sized steps of the parameters between the two."""
@@ -860,12 +923,12 @@ def small_input_reference():
 
     def pair(flags):
         made = []
-        for device in ("cpu", "cuda"):
+        for dev in ("cpu", device):
             args = parse_cmd(tiny_cmd("ndc", 1) + flags)
             args.golden_det = 1
-            made.append(Trainer(args, tiny_scene("ndc"), device=device))
+            made.append(Trainer(args, tiny_scene("ndc"), device=dev))
         cpu, gpu = made
-        gpu.set_params(params_from_numpy(params_to_numpy(cpu.params), "cuda"))
+        gpu.set_params(params_from_numpy(params_to_numpy(cpu.params), device))
         return cpu, gpu
 
     def compare(label, cpu, gpu, limits):
@@ -887,6 +950,14 @@ def small_input_reference():
 
     out = {}
     out["f32_strided"] = compare("f32 strided", *pair(" --vm_layout strided"), (1e-4, 1e-3))
+    # 10d: the memory options (two micro-batches of 32 rays, batched passes,
+    # rematerialization), bf16 auto as the recipe runs them
+    for name, flags in (("accum", " --bf16 1 --grad_accum 2"),
+                        ("fused", " --bf16 1 --fused_passes 1"), ("remat", " --bf16 1 --remat on")):
+        cpu, gpu = pair(flags)
+        if policies(cpu.step_fn.S) != policies(gpu.step_fn.S):
+            raise AssertionError(f"TINY {name}: card and CPU resolved different policies")
+        out[name] = compare(name, cpu, gpu, (1e-4, 1e-3))
     cpu, gpu = pair(" --bf16 1")
     if not cpu.table_layouts() == gpu.table_layouts() == {"static": "strided",
                                                            "dynamic": "merged"}:
@@ -925,7 +996,8 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
                 "--basedir", str(root / "log"), "--expname", "cli",
                 "--downsample_train", "2", "--N_voxel_init", CLI_VOXELS,
                 "--n_iters", str(CLI_STEPS), "--no_tensorboard", "1", "--render_test", "1",
-                "--render_path", "0", "--N_vis", "0", "--progress_refresh_rate", "1"]
+                "--render_path", "0", "--N_vis", "0", "--progress_refresh_rate", "1",
+                *ONE_BATCH]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
@@ -1115,6 +1187,173 @@ def profile_render_chunk(ckpt: str, H: int, W: int, n_samples: int, top: int = 1
             "device_launches": sum(e.count for e in kernels)}
 
 
+def drive_memory_paths(scene, smi: str, device: str = "cuda"):
+    """Phase 10a: the step's memory options at 300³, each its own trainer
+    and main path (counts, 2 warm + 5 timed steps, a profiled step): the
+    auto rule's 4 micro-batches, the batched passes (pass_chunk and remat
+    auto), rematerialization. Returns their records."""
+    from rodynrf_tpu_torch.train import Trainer, parse_cmd
+
+    want = {"accum4": dict(grad_accum=4, fused_passes=False, remat=False),
+            "fused": dict(grad_accum=1, fused_passes=True),
+            "remat": dict(grad_accum=1, fused_passes=False, remat=True)}
+    records = []
+    for path, config in CONFIG_MEMORY.items():
+        tr = Trainer(parse_cmd(" ".join(config)), scene, device=device)
+        got = policies(tr.step_fn.S)
+        if any(got[k] != v for k, v in want[path].items()):
+            raise AssertionError(f"{path}: resolved {got}, want {want[path]}")
+        records.append(drive_path(tr, path, smi, None))
+        del tr
+        torch.cuda.empty_cache()
+    return records
+
+
+def table_bytes(tr) -> dict:
+    """Bytes of the fields' plane and line parameters (f32) and of the
+    gather tables one step packs from them (layout and dtype of the step)."""
+    from rodynrf_tpu_torch.fields import dynamic as dyn
+    from rodynrf_tpu_torch.fields import static as stat
+    from rodynrf_tpu_torch.train.step import is_spatial, named_leaves
+
+    params = sum(t.numel() * t.element_size() for p, t in named_leaves(
+        {"static": tr.params["static"], "dynamic": tr.params["dynamic"]}) if is_spatial(p))
+
+    def packed_bytes(packed):
+        if isinstance(packed, dict):
+            return sum(packed_bytes(v) for v in packed.values())
+        tabs = list(packed.tables) + [t for ts in packed.line_tables for t in ts]
+        return sum(t.numel() * t.element_size() for t in tabs)
+
+    S = tr.step_fn.S
+    with torch.no_grad():
+        packed = (packed_bytes(stat.pack_tables(tr.params["static"], S.static_cfg))
+                  + packed_bytes(dyn.pack_tables(tr.params["dynamic"], S.dynamic_cfg)))
+    return {"params": params, "packed": packed}
+
+
+def walk_schedule(scene, smi: str, device: str = "cuda"):
+    """Phase 10b-10c: configs/Nvidia_no_poses.txt as it stands (N_voxel_init
+    16³, seven upsamples to 640³), every auto policy on. At the first grid
+    and after each upsample (the step at upsamp_list[k], whose end grows the
+    grid): WALK_STEPS steps, with per size the grid, samples per ray, the
+    resolved policies, the table bytes, ms/step and the peak (reset per
+    size). At 640³: one step on a single batch of 1024 rays,
+    rematerialized (what --grad_accum 1 resolves to) and in store mode,
+    each with its peak; one profiled step, a full checkpoint save (seconds,
+    bytes), and both kernels held to their plain versions at one
+    micro-batch's shapes (10c; the segment sum at the merged layout's, since
+    'auto' puts the 640³ dynamic field on the strided one). Returns (the
+    walk's record, the 10c kernel cases)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from rodynrf_tpu_torch.train import Trainer, parse_cmd
+    from rodynrf_tpu_torch.train.step import make_train_step
+
+    args = parse_cmd(" ".join(CONFIG_WALK))
+    tr = Trainer(args, scene, device=device)
+    sizes = []
+    reset_counters()
+    for k in range(len(args.upsamp_list) + 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cross_s = None
+        if k > 0:  # the step at upsamp_list[k - 1] ends with the upsample
+            tr.iteration = args.upsamp_list[k - 1]
+            t0 = time.time()
+            run_steps(tr, 1, f"walk upsample {k}")
+            torch.cuda.synchronize()
+            cross_s = time.time() - t0
+        cross_peak = torch.cuda.max_memory_allocated()
+        S, layouts = tr.step_fn.S, tr.table_layouts()
+        per_step = launches_per_step(S, layouts)
+        tb = table_bytes(tr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counters()
+        t0 = time.time()
+        run_steps(tr, WALK_STEPS, f"walk {list(S.static_cfg.grid_size)}")
+        step_s = (time.time() - t0) / WALK_STEPS
+        after = counters()
+        got = {n: after[n] - before[n] for n in KERNELS}
+        if got != {n: WALK_STEPS * v for n, v in per_step.items()}:
+            raise AssertionError(f"walk at {list(S.static_cfg.grid_size)}: launches {got} != "
+                                 f"{WALK_STEPS} x {per_step}")
+        size = {"grid": list(S.static_cfg.grid_size), "n_samples": S.n_samples, **policies(S),
+                "layouts": layouts, "table_bytes": tb, "ms_per_step": step_s * 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "crossing_step_s": cross_s, "crossing_peak_gib": cross_peak / 2**30,
+                "launches_per_step": per_step}
+        log(f"[walk] grid {size['grid']}, {S.n_samples} samples/ray, {policies(S)}, layouts "
+            f"{layouts}, tables {tb['params'] / 2**30:.3f} GiB of parameters, "
+            f"{tb['packed'] / 2**30:.3f} GiB packed; {size['ms_per_step']:.1f} ms/step, peak "
+            f"{size['peak_gib']:.2f} GiB (the upsample step's {size['crossing_peak_gib']:.2f}) "
+            f"({smi})")
+        log(json.dumps({"walk_size": size}))
+        sizes.append(size)
+    if tuple(tr.step_fn.S.static_cfg.grid_size) != WALK_FINAL_GRID:
+        raise AssertionError(f"the walk ended at {tr.step_fn.S.static_cfg.grid_size}, not "
+                             f"{WALK_FINAL_GRID}")
+
+    # 640³ on a single batch (--grad_accum 1): rematerialized, as the auto
+    # rule resolves it for one batch, then in store mode
+    S_walk, layouts = tr.step_fn.S, tr.table_layouts()
+    one_batch = []
+    for remat in (True, False):
+        S1 = dataclasses.replace(S_walk, grad_accum=1, remat=remat)
+        tr.step_fn = make_train_step(S1, tr.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counters()
+        t0 = time.time()
+        run_steps(tr, 1, f"640 one batch remat {remat}")
+        step_s = time.time() - t0
+        after = counters()
+        got = {n: after[n] - before[n] for n in KERNELS}
+        if got != launches_per_step(S1, layouts):
+            raise AssertionError(f"640³ one batch: launches {got} != "
+                                 f"{launches_per_step(S1, layouts)}")
+        rec = {**policies(S1), "step_s": step_s,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"[walk] 640³ on one batch of {tr.args.batch_size} rays, remat {remat}: one step "
+            f"{step_s:.2f} s, peak {rec['peak_gib']:.2f} GiB ({smi})")
+        one_batch.append(rec)
+    tr.step_fn = make_train_step(S_walk, tr.device)
+    launches = counters()
+
+    # 640³: a profiled step, then a full checkpoint save
+    prof = profile_step(tr)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_walk_"))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tr.save_full(str(root / "walk_640.npz"))
+        save_s = time.time() - t0
+        save_bytes = os.path.getsize(root / "walk_640.npz")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[walk] 640³: profiled step device busy {prof['device_busy_ms']:.1f} ms, "
+        f"{prof['device_launches']} launches; full checkpoint save {save_s:.2f} s, "
+        f"{save_bytes / 2**20:.1f} MiB ({smi})")
+
+    # 10c: the kernels at one micro-batch's shapes at 640³
+    S = tr.step_fn.S
+    points = sample_points(tr, tr.args.batch_size // S.grad_accum)
+    merged = dataclasses.replace(S.dynamic_cfg, vm_layout="merged")
+    cases = check_kernels_at(tr, points, "640", merged_cfg=merged)
+    record = {"path": "walk_640", **policies(S), "sizes": sizes, "launches": launches,
+              "one_batch_640": one_batch,
+              "profile_640": prof, "save_full_s": save_s, "save_full_bytes": save_bytes,
+              "card": smi}
+    log(json.dumps({"main_path": {k: v for k, v in record.items() if k != "sizes"}}))
+    del tr
+    torch.cuda.empty_cache()
+    return record, cases
+
+
 def golden_gates(smi: str, device: str = "cuda"):
     """Phase 8: the reference's first-step gradients and its .th renders,
     on the card."""
@@ -1197,8 +1436,8 @@ def main() -> int:
         for fn, info in ptxas_summary(rep):
             log(f"[build] {name}: {fn}: {info}")
 
-    # the two paths' trainers (the kernel checks draw their inputs from them)
     scene = make_synthetic_scene(**SCENE, ray_type=parse_cmd(" ".join(RECIPE)).ray_type)
+    # the two paths' trainers (the kernel checks draw their inputs from them)
     trainers = {}
     for path, config in (("f32_strided", CONFIG_F32), ("default", CONFIG_DEFAULT)):
         args = parse_cmd(" ".join(config))
@@ -1246,6 +1485,9 @@ def main() -> int:
     del trainers
     torch.cuda.empty_cache()
 
+    # 10a. the memory options at 300³, in the same call as the default path
+    records.extend(drive_memory_paths(scene, smi))
+
     # 5. small-input reference
     tiny_worst = small_input_reference()
     log(json.dumps({"tiny_worst_rel": tiny_worst}))
@@ -1262,6 +1504,10 @@ def main() -> int:
     # 9. compaction at full width (9d ran inside phase 7)
     compact_records, compact_info = drive_compaction(scene, smi)
     records.extend(compact_records)
+
+    # 10b-10c. the recipe's upsample schedule to 640³, the kernels there
+    walk, cases_640 = walk_schedule(scene, smi)
+    records.append(walk)
 
     # 6. report
     def launches(kernel):
@@ -1283,6 +1529,8 @@ def main() -> int:
             "case": main_case["case"], "cases": cases,
             "compact_cases": [c for c in compact_info["compact_cases"]
                               if c["case"].startswith("dynamic merged") == (kernel == "segsum")],
+            "cases_640": [c for c in cases_640
+                          if c["case"].startswith("dynamic merged") == (kernel == "segsum")],
         }
 
     kernels = [

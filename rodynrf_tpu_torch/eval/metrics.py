@@ -84,15 +84,67 @@ def rgb_lpips(np_gt: np.ndarray, np_im: np.ndarray, net_name: str = "alex"):
     return None
 
 
+# cv2's COLORMAP_JET (OpenCV 5.0.0, `cv2.applyColorMap` of the levels
+# 0-255), as RGB: the JAX package colours depth through cv2
+_JET_RGB = np.array([
+    (0, 0, 128), (0, 0, 132), (0, 0, 136), (0, 0, 140), (0, 0, 144),
+    (0, 0, 148), (0, 0, 152), (0, 0, 156), (0, 0, 160), (0, 0, 164),
+    (0, 0, 168), (0, 0, 172), (0, 0, 176), (0, 0, 180), (0, 0, 184),
+    (0, 0, 188), (0, 0, 192), (0, 0, 196), (0, 0, 200), (0, 0, 204),
+    (0, 0, 208), (0, 0, 212), (0, 0, 216), (0, 0, 220), (0, 0, 224),
+    (0, 0, 228), (0, 0, 232), (0, 0, 236), (0, 0, 240), (0, 0, 244),
+    (0, 0, 248), (0, 0, 252), (0, 0, 255), (0, 4, 255), (0, 8, 255),
+    (0, 12, 255), (0, 16, 255), (0, 20, 255), (0, 24, 255), (0, 28, 255),
+    (0, 32, 255), (0, 36, 255), (0, 40, 255), (0, 44, 255), (0, 48, 255),
+    (0, 52, 255), (0, 56, 255), (0, 60, 255), (0, 64, 255), (0, 68, 255),
+    (0, 72, 255), (0, 76, 255), (0, 80, 255), (0, 84, 255), (0, 88, 255),
+    (0, 92, 255), (0, 96, 255), (0, 100, 255), (0, 104, 255), (0, 108, 255),
+    (0, 112, 255), (0, 116, 255), (0, 120, 255), (0, 124, 255), (0, 128, 255),
+    (0, 132, 255), (0, 136, 255), (0, 140, 255), (0, 144, 255), (0, 148, 255),
+    (0, 152, 255), (0, 156, 255), (0, 160, 255), (0, 164, 255), (0, 168, 255),
+    (0, 172, 255), (0, 176, 255), (0, 180, 255), (0, 184, 255), (0, 188, 255),
+    (0, 192, 255), (0, 196, 255), (0, 200, 255), (0, 204, 255), (0, 208, 255),
+    (0, 212, 255), (0, 216, 255), (0, 220, 255), (0, 224, 255), (0, 228, 255),
+    (0, 232, 255), (0, 236, 255), (0, 240, 255), (0, 244, 255), (0, 248, 255),
+    (0, 252, 255), (2, 255, 254), (6, 255, 250), (10, 255, 246), (14, 255, 242),
+    (18, 255, 238), (22, 255, 234), (26, 255, 230), (30, 255, 226), (34, 255, 222),
+    (38, 255, 218), (42, 255, 214), (46, 255, 210), (50, 255, 206), (54, 255, 202),
+    (58, 255, 198), (62, 255, 194), (66, 255, 190), (70, 255, 186), (74, 255, 182),
+    (78, 255, 178), (82, 255, 174), (86, 255, 170), (90, 255, 166), (94, 255, 162),
+    (98, 255, 158), (102, 255, 154), (106, 255, 150), (110, 255, 146), (114, 255, 142),
+    (118, 255, 138), (122, 255, 134), (126, 255, 130), (130, 255, 126), (134, 255, 122),
+    (138, 255, 118), (142, 255, 114), (146, 255, 110), (150, 255, 106), (154, 255, 102),
+    (158, 255, 98), (162, 255, 94), (166, 255, 90), (170, 255, 86), (174, 255, 82),
+    (178, 255, 78), (182, 255, 74), (186, 255, 70), (190, 255, 66), (194, 255, 62),
+    (198, 255, 58), (202, 255, 54), (206, 255, 50), (210, 255, 46), (214, 255, 42),
+    (218, 255, 38), (222, 255, 34), (226, 255, 30), (230, 255, 26), (234, 255, 22),
+    (238, 255, 18), (242, 255, 14), (246, 255, 10), (250, 255, 6), (254, 255, 1),
+    (255, 252, 0), (255, 248, 0), (255, 244, 0), (255, 240, 0), (255, 236, 0),
+    (255, 232, 0), (255, 228, 0), (255, 224, 0), (255, 220, 0), (255, 216, 0),
+    (255, 212, 0), (255, 208, 0), (255, 204, 0), (255, 200, 0), (255, 196, 0),
+    (255, 192, 0), (255, 188, 0), (255, 184, 0), (255, 180, 0), (255, 176, 0),
+    (255, 172, 0), (255, 168, 0), (255, 164, 0), (255, 160, 0), (255, 156, 0),
+    (255, 152, 0), (255, 148, 0), (255, 144, 0), (255, 140, 0), (255, 136, 0),
+    (255, 132, 0), (255, 128, 0), (255, 124, 0), (255, 120, 0), (255, 116, 0),
+    (255, 112, 0), (255, 108, 0), (255, 104, 0), (255, 100, 0), (255, 96, 0),
+    (255, 92, 0), (255, 88, 0), (255, 84, 0), (255, 80, 0), (255, 76, 0),
+    (255, 72, 0), (255, 68, 0), (255, 64, 0), (255, 60, 0), (255, 56, 0),
+    (255, 52, 0), (255, 48, 0), (255, 44, 0), (255, 40, 0), (255, 36, 0),
+    (255, 32, 0), (255, 28, 0), (255, 24, 0), (255, 20, 0), (255, 16, 0),
+    (255, 12, 0), (255, 8, 0), (255, 4, 0), (255, 0, 0), (252, 0, 0),
+    (248, 0, 0), (244, 0, 0), (240, 0, 0), (236, 0, 0), (232, 0, 0),
+    (228, 0, 0), (224, 0, 0), (220, 0, 0), (216, 0, 0), (212, 0, 0),
+    (208, 0, 0), (204, 0, 0), (200, 0, 0), (196, 0, 0), (192, 0, 0),
+    (188, 0, 0), (184, 0, 0), (180, 0, 0), (176, 0, 0), (172, 0, 0),
+    (168, 0, 0), (164, 0, 0), (160, 0, 0), (156, 0, 0), (152, 0, 0),
+    (148, 0, 0), (144, 0, 0), (140, 0, 0), (136, 0, 0), (132, 0, 0),
+    (128, 0, 0),
+], dtype=np.uint8)
+
+
 def jet_colormap(x: np.ndarray) -> np.ndarray:
-    """uint8 [...] -> RGB uint8 [..., 3]: cv2's COLORMAP_JET (piecewise
-    linear in steps of 4 levels; cv2's own table differs by one level at
-    one entry)."""
-    x = np.asarray(x).astype(np.int32)
-    ch = [np.minimum(4 * x - 382, 1148 - 4 * x),  # red
-          np.minimum(4 * x - 128, 892 - 4 * x),  # green
-          np.minimum(4 * x + 128, 638 - 4 * x)]  # blue
-    return np.clip(np.stack(ch, -1), 0, 255).astype(np.uint8)
+    """uint8 [...] -> RGB uint8 [..., 3]: cv2's COLORMAP_JET, level by level."""
+    return _JET_RGB[np.asarray(x).astype(np.uint8)]
 
 
 def visualize_depth_numpy(depth: np.ndarray, minmax=None, cmap_id=None):

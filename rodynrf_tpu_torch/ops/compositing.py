@@ -3,7 +3,9 @@ rodynrf_tpu/ops/compositing.py; reference models/tensorBase.py:22-34 and
 renderer.py:173-315). Dense over [rays, samples] with cumulative products.
 
 The white-fill coin of training is a Python bool (or None for no fill):
-the trainer draws it from its own generator, or golden mode fixes it.
+the trainer draws it from its own generator, or golden mode fixes it. The
+batched passes give a bool tensor [R] instead, each pass's coin over its
+rows.
 """
 
 from __future__ import annotations
@@ -29,6 +31,19 @@ def raw2alpha(sigma: torch.Tensor, dist: torch.Tensor):
     return alpha, weights, bg_weight
 
 
+def _any_white(white) -> bool:
+    """Whether a white fill can apply: `white` is a bool or None (one coin
+    for every row) or a bool tensor [R] (one coin per row)."""
+    return torch.is_tensor(white) or bool(white)
+
+
+def _white_fill(rgb_map, rest, white):
+    """rgb_map + rest on the rows whose coin says white."""
+    if torch.is_tensor(white):
+        return torch.where(white[:, None], rgb_map + rest, rgb_map)
+    return rgb_map + rest
+
+
 def _depth_tail(depth, acc, rays, ray_type, relu=False):
     rest = torch.relu(1.0 - acc) if relu else 1.0 - acc
     if ray_type == "ndc":
@@ -39,15 +54,15 @@ def _depth_tail(depth, acc, rays, ray_type, relu=False):
 
 
 def static_side_outputs(rgb_s, sigma_s, dists, z_vals, rays, *, is_train: bool = False,
-                        ray_type: str = "ndc", white: Optional[bool] = None):
+                        ray_type: str = "ndc", white=None):
     """The static-side subset of raw2outputs: (rgb_map_s, depth_s, acc_s,
     weights_s) with exactly its formulas, eps and white fill."""
     alpha_s = 1.0 - torch.exp(-sigma_s * dists)
     weights_s = alpha_s * _exclusive_transmittance(alpha_s)
     rgb_map_s = torch.sum(weights_s[..., None] * rgb_s, -2)
     acc_s = torch.sum(weights_s, -1)
-    if is_train and white:
-        rgb_map_s = rgb_map_s + (1.0 - acc_s[..., None])
+    if is_train and _any_white(white):
+        rgb_map_s = _white_fill(rgb_map_s, 1.0 - acc_s[..., None], white)
     depth_s = _depth_tail(torch.sum(weights_s * z_vals, -1), acc_s, rays, ray_type)
     return torch.clamp(rgb_map_s, 0.0, 1.0), depth_s, acc_s, weights_s
 
@@ -81,12 +96,13 @@ class RenderOutputs(NamedTuple):
 
 def raw2outputs(rgb_s, sigma_s, rgb_d, sigma_d, dists, blending, z_vals, rays, *,
                 is_train: bool = False, ray_type: str = "ndc",
-                white: Optional[bool] = None) -> RenderOutputs:
+                white=None) -> RenderOutputs:
     """Dual-field compositing (reference: renderer.py:173-315).
 
     rgb_s/rgb_d [R, S, 3]; sigma_s/sigma_d/dists/blending/z_vals [R, S];
     rays [R, 6]. `white` (training only) white-fills the unoccupied ray
-    remainder, the reference's stochastic background (renderer.py:269-272).
+    remainder, the reference's stochastic background (renderer.py:269-272);
+    a bool tensor [R] gives each row its own coin.
     """
     alpha_d = 1.0 - torch.exp(-sigma_d * dists)
     alpha_s = 1.0 - torch.exp(-sigma_s * dists)
@@ -115,10 +131,10 @@ def raw2outputs(rgb_s, sigma_s, rgb_d, sigma_d, dists, blending, z_vals, rays, *
     acc_s = torch.sum(weights_s, -1)
     acc_full = torch.sum(weights_full, -1)
 
-    if is_train and white:
-        rgb_map_d = rgb_map_d + (1.0 - acc_d[..., None])
-        rgb_map_s = rgb_map_s + (1.0 - acc_s[..., None])
-        rgb_map_full = rgb_map_full + torch.relu(1.0 - acc_full[..., None])
+    if is_train and _any_white(white):
+        rgb_map_d = _white_fill(rgb_map_d, 1.0 - acc_d[..., None], white)
+        rgb_map_s = _white_fill(rgb_map_s, 1.0 - acc_s[..., None], white)
+        rgb_map_full = _white_fill(rgb_map_full, torch.relu(1.0 - acc_full[..., None]), white)
 
     depth_d = _depth_tail(torch.sum(weights_d * z_vals, -1), acc_d, rays, ray_type)
     depth_s = _depth_tail(torch.sum(weights_s * z_vals, -1), acc_s, rays, ray_type)

@@ -15,12 +15,15 @@ sets (SURVEY.md §3.1 passes A-G):
 The reference's detach topology is kept: every `lax.stop_gradient` of the
 JAX step is a `.detach()` at the same site, and a fully detached static
 evaluation runs under `torch.no_grad()`. Passes run one after another and
-keep their activations for the backward (store mode). With an occupancy
-mask (`use_alpha_mask`) each pass's samples are masked by the mask's
-occupancy bit and, with `compact_k`, compacted to a per-ray [R, K] bucket,
-optionally evaluated through a flat bucket (`compact_flat`). The batched-pass,
-rematerialized and accumulated variants of the JAX step are later slices;
-the trainer refuses them.
+keep their activations for the backward (store mode), or, with `remat`,
+recompute each field evaluation's activations in the backward. With
+`fused_passes` the passes' rows are concatenated into batched field
+evaluations instead (`_batched_passes`). With an occupancy mask
+(`use_alpha_mask`) each pass's samples are masked by the mask's occupancy
+bit and, with `compact_k`, compacted to a per-ray [R, K] bucket, optionally
+evaluated through a flat bucket (`compact_flat`). With `grad_accum` > 1 the
+ray batch is split into equal micro-batches whose gradients are averaged
+before one optimizer update (`TrainStep.grads_and_metrics`).
 
 The three Adam optimizers (fields, pose, fov) update the parameters in
 place; their learning rates come from the host schedule on every step.
@@ -33,6 +36,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.rays import get_ray_directions_lean, get_rays_lean, ids2pixel, ndc_rays_blender
 from ..core.se3 import pose_to_mtx
@@ -49,7 +53,12 @@ from ..ops.compositing import (
 from ..ops.distortion import eff_distloss
 from ..ops.regularizers import line_orthogonality
 from ..render.flow import induce_flow
-from ..render.pipeline import _dists_and_viewdirs, eval_dynamic_field, eval_static_field
+from ..render.pipeline import (
+    FieldEval,
+    _dists_and_viewdirs,
+    eval_dynamic_field,
+    eval_static_field,
+)
 from ..render.sampling import sample_xyz
 from . import losses as L
 
@@ -72,8 +81,8 @@ class LossWeights:
 
 @dataclass(frozen=True)
 class StepStatics:
-    """Configuration of the train step (the JAX StepStatics fields this
-    slice implements)."""
+    """Configuration of the train step (the JAX StepStatics fields the port
+    implements; the mesh is absent: one device)."""
 
     static_cfg: FieldConfig
     dynamic_cfg: FieldConfig
@@ -116,6 +125,25 @@ class StepStatics:
     # scattered back to [R, K]; exact vs the [R, K] step whenever the
     # batch's occupied count fits, overflow samples read as empty. 0 = off.
     compact_flat: int = 0
+    # recompute each field evaluation's activations in the backward instead
+    # of storing them (torch.utils.checkpoint); the same numbers
+    remat: bool = False
+    # batch the passes' field evaluations: one dynamic evaluation over the
+    # dual and dyn-only passes, one detached and one gradient-carrying
+    # static evaluation, one dual compositor; the same numbers up to float
+    # reassociation (_batched_passes)
+    fused_passes: bool = False
+    # split the ray batch into this many equal micro-batches and average
+    # their gradients and metrics before one optimizer update. Not the
+    # full-batch step: the monodepth median/MAD normalisation and the flow
+    # losses' mask-sum ratios are batch statistics, taken per micro-batch
+    grad_accum: int = 1
+    # with fused_passes: at most this many passes per batched dynamic
+    # evaluation (0 = all in one)
+    pass_chunk: int = 0
+    # fill the RenderOutputs fields no loss reads with NaN instead of zeros,
+    # so that a loss that reads one turns the total non-finite
+    debug_nan_fill: bool = False
 
 
 def focal_from_fov(fov, H: int, W: int):
@@ -173,12 +201,15 @@ class PassSpec(NamedTuple):
     static_from: Any = None
 
 
-def _partial_outputs(like: torch.Tensor, R: int, nS: int, **filled) -> RenderOutputs:
+def _partial_outputs(like: torch.Tensor, R: int, nS: int, debug_nan: bool = False,
+                     **filled) -> RenderOutputs:
     """A RenderOutputs with only the consumed fields filled; the rest are
-    zeros of like's dtype and device (no loss reads them)."""
-    z_r = like.new_zeros((R,))
-    z_rs = like.new_zeros((R, nS))
-    z_r3 = like.new_zeros((R, 3))
+    zeros of like's dtype and device (no loss reads them), or NaN with
+    debug_nan (StepStatics.debug_nan_fill)."""
+    fill = float("nan") if debug_nan else 0.0
+    z_r = like.new_full((R,), fill)
+    z_rs = like.new_full((R, nS), fill)
+    z_r3 = like.new_full((R, 3), fill)
     defaults = dict(
         rgb_full=z_r3, depth_full=z_r, acc_full=z_r, weights_full=z_rs,
         rgb_s=z_r3, depth_s=z_r, acc_s=z_r, weights_s=z_rs,
@@ -228,6 +259,16 @@ def _compact_samp(xyz, z_vals, occ, rays, ray_type, K: int):
     return (pk[..., :3], pk[..., 3], keep, pk[..., 4]), idx
 
 
+def _eval(field_fn, remat: bool, *args, **kw) -> FieldEval:
+    """One field evaluation; with remat its activations are dropped after
+    the forward and recomputed in the backward. The gather tables come in
+    built, so the recomputation never rebuilds them, and the evaluation
+    draws nothing at random, so it recomputes the same values."""
+    if remat:
+        return checkpoint(field_fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+    return field_fn(*args, **kw)
+
+
 def _dual_pass(params, S: StepStatics, aabb, sp: PassSpec, packs, shared_st=None):
     """Sampler + static field + dynamic field + compositor for one ray set.
     packs: (packed_static, packed_dynamic) gather tables built once per step."""
@@ -246,14 +287,14 @@ def _dual_pass(params, S: StepStatics, aabb, sp: PassSpec, packs, shared_st=None
     flat_n = S.compact_flat * R if S.compact_flat > 0 and dists_pre is not None else 0
 
     def run_dynamic():
-        return eval_dynamic_field(
-            params["dynamic"], S.dynamic_cfg, aabb, rays, ts, xyz, z_vals, ray_valid,
-            S.ray_type, packed=packed_dn, dists=dists_pre, flat_n=flat_n,
+        return _eval(
+            eval_dynamic_field, S.remat, params["dynamic"], S.dynamic_cfg, aabb, rays, ts, xyz,
+            z_vals, ray_valid, S.ray_type, packed=packed_dn, dists=dists_pre, flat_n=flat_n,
         )
 
     if sp.mode == "dyn":
         dn = run_dynamic()
-        out = _partial_outputs(rays, R, nS,
+        out = _partial_outputs(rays, R, nS, S.debug_nan_fill,
                                weights_d=dynamic_side_weights(dn.sigma, dn.dists))
         return out, None, dn, z_vals
 
@@ -268,9 +309,9 @@ def _dual_pass(params, S: StepStatics, aabb, sp: PassSpec, packs, shared_st=None
                 S.ray_type, packed=packed_st, dists=dists_pre, flat_n=flat_n,
             )
     else:
-        st = eval_static_field(
-            params["static"], S.static_cfg, aabb, rays, ts, xyz, z_vals, ray_valid,
-            S.ray_type, packed=packed_st, dists=dists_pre, flat_n=flat_n,
+        st = _eval(
+            eval_static_field, S.remat, params["static"], S.static_cfg, aabb, rays, ts, xyz,
+            z_vals, ray_valid, S.ray_type, packed=packed_st, dists=dists_pre, flat_n=flat_n,
         )
 
     if sp.mode == "stat":
@@ -281,8 +322,8 @@ def _dual_pass(params, S: StepStatics, aabb, sp: PassSpec, packs, shared_st=None
             st.rgb, st.sigma, st.dists, st.z_vals, rays,
             is_train=True, ray_type=S.ray_type, white=sp.white,
         )
-        out = _partial_outputs(rays, R, nS, rgb_s=rgb_s, depth_s=depth_s, acc_s=acc_s,
-                               weights_s=weights_s)
+        out = _partial_outputs(rays, R, nS, S.debug_nan_fill, rgb_s=rgb_s, depth_s=depth_s,
+                               acc_s=acc_s, weights_s=weights_s)
         return out, st, None, z_vals
 
     dn = run_dynamic()
@@ -293,13 +334,159 @@ def _dual_pass(params, S: StepStatics, aabb, sp: PassSpec, packs, shared_st=None
     return out, st, dn, z_vals
 
 
-def _run_passes(params, S: StepStatics, aabb, specs, packs):
-    """Evaluate the passes one after another; static-eval providers
-    (PassSpec.static_from) run before their consumers."""
-    res = {}
+def _pass_order(specs):
+    """The passes in evaluation order: static-eval providers
+    (PassSpec.static_from) before their consumers, the given order
+    otherwise. Jitter is drawn in this order on both paths."""
     providers = {sp.static_from for sp in specs.values() if sp.static_from}
-    names = [n for n in specs if n in providers] + [n for n in specs if n not in providers]
+    return [n for n in specs if n in providers] + [n for n in specs if n not in providers]
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+
+
+def _cat_evals(evs) -> FieldEval:
+    return FieldEval(*(None if vs[0] is None else _cat(list(vs)) for vs in zip(*evs)))
+
+
+def _slice_eval(ev: FieldEval, i0: int, i1: int) -> FieldEval:
+    return FieldEval(*(None if v is None else v[i0:i1] for v in ev))
+
+
+def _batched_passes(params, S: StepStatics, aabb, specs, packs):
+    """All passes through batched field evaluations: the passes' rows are
+    concatenated and evaluated as
+      * one dynamic evaluation over the passes that need it (duals A/B and
+        dyn-only C/D), in chunks of at most `pass_chunk` passes;
+      * one fully detached static evaluation over the detach_static duals
+        that do not reuse another pass's (none under share_forward);
+      * one gradient-carrying static evaluation over E/F/G and FF/BB;
+      * one dual compositor over the dual passes, each pass's white-fill
+        coin broadcast over its rows; dyn and stat_out passes get the
+        dynamic-side and static-side compositor subsets.
+    The detach topology, the per-pass draws and every per-row number are
+    the sequential path's; one table-gradient call sums what the sequential
+    path sums over several, in another order."""
+    packed_st, packed_dn = packs
+    names = list(specs)
+    dyn_names = [n for n in names if specs[n].mode in ("dual", "dyn")]
+    dual_names = [n for n in names if specs[n].mode == "dual"]
+    det_names = [n for n in dual_names
+                 if specs[n].detach_static and specs[n].static_from is None]
+    grad_names = [n for n in names
+                  if (specs[n].mode == "dual" and not specs[n].detach_static)
+                  or specs[n].mode in ("stat_out", "stat")]
+    if dual_names != dyn_names[:len(dual_names)]:
+        raise ValueError("dual passes must precede dyn-only passes")
+
+    # per-pass geometry, drawn in the sequential path's order;
+    # (xyz, z_vals, valid, dists or None) as _unpack_samp gives it
+    samp = {}
+    for n in _pass_order(specs):
+        sp = specs[n]
+        samp[n] = _unpack_samp(sp.samp) if sp.samp is not None else sample_xyz(
+            sp.rays, S.n_samples, S.ray_type, S.static_cfg.near_far, aabb, S.step_size,
+            sp.gen, det_jitter=S.golden_det,
+        ) + (None,)
+    R = {n: specs[n].rays.shape[0] for n in names}
+
+    def group(grp):
+        """The concatenated inputs of one evaluation; precomputed dists are
+        all or nothing (train-time compaction sets them for every pass)."""
+        rays = _cat([specs[n].rays for n in grp])
+        dists = None if samp[grp[0]][3] is None else _cat([samp[n][3] for n in grp])
+        # flat-bucket evals on compacted geometry only, sized by the rows
+        flat_n = S.compact_flat * rays.shape[0] if S.compact_flat > 0 and dists is not None else 0
+        return dict(rays=rays, ts=_cat([specs[n].ts for n in grp]),
+                    xyz=_cat([samp[n][0] for n in grp]), z_vals=_cat([samp[n][1] for n in grp]),
+                    ray_valid=_cat([samp[n][2] for n in grp]), dists=dists, flat_n=flat_n)
+
+    def evaluate(field_fn, p, cfg, packed, g, remat):
+        return _eval(field_fn, remat, p, cfg, aabb, g["rays"], g["ts"], g["xyz"], g["z_vals"],
+                     g["ray_valid"], S.ray_type, packed=packed, dists=g["dists"],
+                     flat_n=g["flat_n"])
+
+    def split(ev, grp, out):
+        off = 0
+        for n in grp:
+            out[n] = _slice_eval(ev, off, off + R[n])
+            off += R[n]
+
+    # dynamic: the chunks run one after another in eager order, so their
+    # gathered rows are never live together (what the JAX package's
+    # optimization_barrier chain enforces on XLA's schedule)
+    chunk = S.pass_chunk if 0 < S.pass_chunk < len(dyn_names) else len(dyn_names)
+    dn_all = _cat_evals([
+        evaluate(eval_dynamic_field, params["dynamic"], S.dynamic_cfg, packed_dn,
+                 group(dyn_names[i:i + chunk]), S.remat)
+        for i in range(0, len(dyn_names), chunk)
+    ])
+    dn_by_name = {}
+    split(dn_all, dyn_names, dn_by_name)
+
+    st_by_name = {}
+    if det_names:
+        with torch.no_grad():
+            split(evaluate(eval_static_field, params["static"], S.static_cfg, packed_st,
+                           group(det_names), False), det_names, st_by_name)
+    if grad_names:
+        split(evaluate(eval_static_field, params["static"], S.static_cfg, packed_st,
+                       group(grad_names), S.remat), grad_names, st_by_name)
     for n in names:
+        if specs[n].static_from is not None:
+            st_by_name[n] = st_by_name[specs[n].static_from].detach()
+
+    res = {}
+    if dual_names:
+        n_dual = sum(R[n] for n in dual_names)
+        dn_dual = _slice_eval(dn_all, 0, n_dual)
+        white = None
+        if not S.golden_det:
+            white = torch.cat([torch.full((R[n],), bool(specs[n].white), dtype=torch.bool,
+                                          device=dn_dual.sigma.device) for n in dual_names])
+        out_all = raw2outputs(
+            _cat([st_by_name[n].rgb for n in dual_names]),
+            _cat([st_by_name[n].sigma for n in dual_names]),
+            dn_dual.rgb, dn_dual.sigma, dn_dual.dists, dn_dual.blending, dn_dual.z_vals,
+            _cat([specs[n].rays for n in dual_names]),
+            is_train=True, ray_type=S.ray_type, white=white,
+        )
+        off = 0
+        for n in dual_names:
+            res[n] = (RenderOutputs(*(v[off:off + R[n]] for v in out_all)), st_by_name[n],
+                      dn_by_name[n], samp[n][1])
+            off += R[n]
+    for n in names:
+        sp, z_vals = specs[n], samp[n][1]
+        if sp.mode == "dyn":
+            dn = dn_by_name[n]
+            res[n] = (_partial_outputs(sp.rays, R[n], z_vals.shape[1], S.debug_nan_fill,
+                                       weights_d=dynamic_side_weights(dn.sigma, dn.dists)),
+                      None, dn, z_vals)
+        elif sp.mode == "stat_out":
+            st = st_by_name[n]
+            rgb_s, depth_s, acc_s, weights_s = static_side_outputs(
+                st.rgb, st.sigma, st.dists, st.z_vals, sp.rays,
+                is_train=True, ray_type=S.ray_type, white=sp.white,
+            )
+            res[n] = (_partial_outputs(sp.rays, R[n], z_vals.shape[1], S.debug_nan_fill,
+                                       rgb_s=rgb_s, depth_s=depth_s, acc_s=acc_s,
+                                       weights_s=weights_s), st, None, z_vals)
+        elif sp.mode == "stat":
+            res[n] = (None, st_by_name[n], None, z_vals)
+    return res
+
+
+def _run_passes(params, S: StepStatics, aabb, specs, packs):
+    """Batched (fused_passes) or sequential evaluation of the passes. The
+    sequential passes run in eager order, one after another: the JAX
+    package's optimization_barrier chain, which keeps XLA from overlapping
+    rematerialized passes, has nothing to order here."""
+    if S.fused_passes:
+        return _batched_passes(params, S, aabb, specs, packs)
+    res = {}
+    for n in _pass_order(specs):
         sp = specs[n]
         shared = res[sp.static_from][1] if sp.static_from else None
         res[n] = _dual_pass(params, S, aabb, sp, packs, shared_st=shared)
@@ -792,13 +979,28 @@ class TrainStep:
 
     def grads_and_metrics(self, params, aabb, data, ray_idx, ray_idx_rand, gen, sc):
         """Loss, backward, and the gradient tree (zeros where the loss did
-        not reach a parameter). Leaves the gradients in `.grad`."""
+        not reach a parameter). Leaves the gradients in `.grad`.
+
+        With grad_accum = A > 1, micro-batch i takes row i of
+        ray_idx.reshape(A, -1) and of ray_idx_rand.reshape(A, -1) and draws
+        from `gen` after micro-batch i - 1; each micro-batch's backward adds
+        its gradient over A into `.grad`, zeroed once per step, and the
+        metrics are the mean over the micro-batches (the JAX package's
+        scan). Each micro-batch builds its own gather tables, so only one
+        micro-batch's graph is alive at a time."""
         for _, t in named_leaves(params):
             t.grad = None
-        total, metrics = train_loss(params, self.S, aabb, data, ray_idx, ray_idx_rand, gen, sc)
-        total.backward()
+        A = max(1, int(self.S.grad_accum))
+        metrics: Dict[str, Any] = {}
+        for ri, rr in zip(ray_idx.reshape(A, -1), ray_idx_rand.reshape(A, -1)):
+            total, m = train_loss(params, self.S, aabb, data, ri, rr, gen, sc)
+            (total / A if A > 1 else total).backward()
+            for k, v in m.items():
+                v = v.detach() if torch.is_tensor(v) else v
+                metrics[k] = v if A == 1 else metrics.get(k, 0.0) + v / A
+            del total, m
         grads = _tree_map(lambda t: t.grad if t.grad is not None else torch.zeros_like(t), params)
-        return grads, {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
+        return grads, metrics
 
     def __call__(self, params, opt_state, aabb, data, ray_idx, ray_idx_rand, gen, sc):
         _, metrics = self.grads_and_metrics(params, aabb, data, ray_idx, ray_idx_rand, gen, sc)

@@ -11,11 +11,14 @@ fired by `train` at `update_AlphaMask_list` iterations); with
 appearance top-K compaction from `--app_start` (default: after the first
 upsample). Resumes from a native checkpoint (`--ckpt`), its mask included:
 a full one (`save_full`) continues the exact trajectory, a plain one
-restarts the optimizers and replays the schedule. What the port lacks is
-refused with NotImplementedError rather than ignored, naming the ROADMAP.md
-queue 1 item that brings it: batched passes, rematerialization, gradient
-accumulation, sharded grids, the table-gradient routes other than the
-kernels, and more than one device.
+restarts the optimizers and replays the schedule. The step's memory
+options follow the JAX trainer's auto rules: gradient accumulation
+(`--grad_accum`, 0 = 4 micro-batches when N_voxel_final > 500³),
+rematerialization (`--remat auto|on|off`) and, with `--fused_passes 1`,
+the passes per batched dynamic evaluation. What the port lacks is refused
+with NotImplementedError rather than ignored, naming the ROADMAP.md queue 1
+item that brings it: sharded grids, the table-gradient routes other than
+the kernels, and more than one device.
 """
 
 from __future__ import annotations
@@ -73,12 +76,6 @@ def not_ported(what: str, item: str = "ROADMAP.md"):
 
 def _refuse_unported(args, device: torch.device):
     """NotImplementedError for every option the port does not implement."""
-    if int(getattr(args, "fused_passes", 0)):
-        not_ported("--fused_passes 1", PARALLELISM)
-    if getattr(args, "remat", "auto") == "on":
-        not_ported("--remat on", PARALLELISM)
-    if int(getattr(args, "grad_accum", 0)) > 1:
-        not_ported("--grad_accum > 1", PARALLELISM)
     if int(getattr(args, "shard_grids", 0)):
         not_ported("--shard_grids 1", PARALLELISM)
     if getattr(args, "grad_impl", "autodiff") != "autodiff":
@@ -190,6 +187,9 @@ class Trainer:
                 self._enable_train_compaction(sizes)
         self._refresh_app_frac()
         self.step_fn = make_train_step(self._statics(), device=self.device)
+        S = self.step_fn.S
+        print(f"memory policies: grad_accum {S.grad_accum}, remat {'on' if S.remat else 'off'}, "
+              f"fused_passes {int(S.fused_passes)}, pass_chunk {S.pass_chunk}")
 
     def save_full(self, path: str):
         """Write a full training checkpoint: parameters, every Adam's moments
@@ -308,7 +308,65 @@ class Trainer:
             alpha_shape=self.alpha_shape,
             compact_k=self.compact_k,
             compact_flat=self.compact_flat,
+            remat=self._remat_policy(),
+            fused_passes=bool(int(getattr(a, "fused_passes", 0))),
+            pass_chunk=self._pass_chunk(),
+            grad_accum=self._grad_accum(),
         )
+
+    # The three policies below are the JAX trainer's, rule for rule
+    # (rodynrf_tpu/train/trainer.py:316-388), budgets included: those were
+    # measured against a 16 GB TPU's memory, not this card's.
+
+    def _grad_accum(self) -> int:
+        """Micro-batch count: explicit --grad_accum, else 4 on the
+        640³-class schedules (N_voxel_final > 500³), 1 otherwise, raised
+        until it divides the batch."""
+        a = int(getattr(self.args, "grad_accum", 0))
+        if a > 0:
+            return a
+        need = 4 if int(self.args.N_voxel_final) > 500 ** 3 else 1
+        while int(self.args.batch_size) % need:
+            need += 1
+        return need
+
+    def _gather_row_bytes(self) -> tuple:
+        """(per-pass dynamic-evaluation gathered-row bytes, per-pass static):
+        12 corner rows (3 orientations × 4 corners) × the packed channels per
+        sample, density and blending on every sample, appearance scaled by
+        the top-K fraction; the per-ray sample count is compact_k when
+        train-time compaction is on."""
+        S = self.compact_k if self.compact_k else self.n_samples
+        B = int(self.args.batch_size)
+        dt = 2 if self.dynamic_cfg.grid_sample_dtype == "bfloat16" else 4
+        k = self.dynamic_cfg.app_topk(S)
+        app_f = (k / S) if 0 < k < S else 1.0
+        c_dyn = 3 * (sum(self.dynamic_cfg.density_n_comp) * 2
+                     + sum(self.dynamic_cfg.app_n_comp) * app_f)
+        c_st = sum(self.static_cfg.density_n_comp) + sum(self.static_cfg.app_n_comp) * app_f
+        return B * S * 12 * c_dyn * dt, B * S * 12 * c_st * dt
+
+    def _pass_chunk(self) -> int:
+        """Passes per batched dynamic evaluation: one evaluation's gathered
+        rows within an 8e9-byte budget."""
+        per_pass, _ = self._gather_row_bytes()
+        return max(1, int(8e9 // max(per_pass, 1)))
+
+    def _remat_policy(self) -> bool:
+        """--remat on/off, or 'auto': sequential passes store their
+        activations except on 350³ < N_voxel_final schedules without 4-way
+        accumulation; batched passes rematerialize when 0.65 × their
+        estimated gathered rows exceed 9e9 bytes."""
+        mode = getattr(self.args, "remat", "auto")
+        if mode == "on":
+            return True
+        if mode == "off":
+            return False
+        if not int(getattr(self.args, "fused_passes", 0)):
+            n = int(self.args.N_voxel_final)
+            return 350 ** 3 < n and self._grad_accum() < 4
+        per_dyn, per_st = self._gather_row_bytes()
+        return (7 * per_dyn + 9 * per_st) * 0.65 > 9e9
 
     def table_layouts(self) -> Dict[str, object]:
         """The gather-table layout each field's step uses at the current grid

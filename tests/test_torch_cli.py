@@ -152,6 +152,17 @@ def test_masked_checkpoint_renders_its_evaluation(masked_run, compact):
         assert not own["flat_log"] and all(np.isfinite(own["psnrs"]))
 
 
+def test_memory_options_through_the_cli(run, capsys):
+    """--fused_passes 1 --grad_accum 2 through cli.main: the trainer takes
+    the batched passes on two micro-batches of 32 rays and trains."""
+    tmp, _ = run
+    rep = main(_argv(tmp, "--fused_passes", "1", "--grad_accum", "2", "--expname", "fused"),
+               device="cpu")
+    assert len(rep["losses"]) == 2 and all(np.isfinite(rep["losses"]))  # every 2nd of 4
+    assert "grad_accum 2, remat off, fused_passes 1" in capsys.readouterr().out
+    assert (tmp / "log" / "fused" / "fused.npz").is_file()
+
+
 @pytest.mark.parametrize("extra,match", [
     (("--export_mesh", "1"), "export_mesh"),
 ])

@@ -52,7 +52,11 @@ from test_torch_step_merged import _is_table, _trainers
 # TINY fields' alpha distribution (every voxel passes the recipe's 1e-4)
 CMD = (tiny_cmd("ndc", 1) + " --N_voxel_init 32768 --N_voxel_final 32768 --nSamples 64"
        " --compact_train 1 --alpha_mask_thre 0.04 --compact_quantile 0.5")
-CMDS = {"f32": CMD + " --vm_layout strided", "bf16": CMD + " --bf16 1"}
+CMDS = {"f32": CMD + " --vm_layout strided", "bf16": CMD + " --bf16 1",
+        # appearance compaction on the flat bucket: the flat branch of the
+        # field evaluations runs on the split {"db", "app"} packs
+        "app_frac": CMD + " --vm_layout strided --app_frac 0.25 --app_start 0"}
+F32 = ("f32", "app_frac")  # the float32 configurations, with float64 runs
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -92,7 +96,7 @@ def _masked(name):
     tg, tm = _port_grads(tS, ttr, ttr.params, ttr.aabb, ttr.data, ri, rr)
     out = dict(name=name, jtr=jtr, ttr=ttr, F=F, jg=dict(_leaves(jg)), tg=dict(_leaves(tg)),
                jm={k: float(v) for k, v in jm.items()}, tm=tm)
-    if name == "f32":
+    if name in F32:
         with jax.enable_x64(True):
             jg64, _ = _jax_grads(jtr, jstep, ri, rr, jnp.float64)
         out["noise"] = {p: _rel(out["jg"][p], v) for p, v in _leaves(jg64)}
@@ -105,7 +109,7 @@ def _masked(name):
     return out
 
 
-@pytest.fixture(scope="module", params=["f32", "bf16"])
+@pytest.fixture(scope="module", params=["f32", "bf16", "app_frac"])
 def masked(request):
     return _masked(request.param)
 
@@ -125,6 +129,9 @@ def test_update_alpha_mask_gives_the_jax_mask_and_buckets(masked):
     assert ttr.step_fn.S.use_alpha_mask and ttr.step_fn.S.alpha_shape == jtr.alpha_shape
     np.testing.assert_array_equal(ttr.data["alpha_volume"].numpy(),
                                   np.asarray(jtr.data["alpha_volume"]))
+    if masked["name"] == "app_frac":  # the split packs feed the flat bucket
+        assert all(isinstance(v, dict) for v in ttr.table_layouts().values())
+        assert masked["F"] > 0
     # the probe itself, at a quantum of 1: every count equal
     assert ttr._probe_compact_k(quantum=1) == jtr._probe_compact_k(quantum=1)
     print(f"{masked['name']}: occupancy {tv.mean():.3f}, K={ttr.compact_k} "
@@ -133,7 +140,7 @@ def test_update_alpha_mask_gives_the_jax_mask_and_buckets(masked):
 
 def test_compacted_step_losses_match_jax(masked):
     jm, tm = masked["jm"], masked["tm"]
-    rtol = 1e-5 if masked["name"] == "f32" else 1e-4
+    rtol = 1e-5 if masked["name"] in F32 else 1e-4
     assert set(jm) == set(tm) and len(jm) > 30
     for k in sorted(jm):
         np.testing.assert_allclose(tm[k], jm[k], rtol=rtol, atol=1e-9, err_msg=k)
@@ -143,11 +150,11 @@ def test_compacted_step_gradients_match_jax(masked):
     name, jg, tg, noise = masked["name"], masked["jg"], masked["tg"], masked["noise"]
     assert set(jg) == set(tg) == set(noise)
     assert {p[0] for p in jg} == {"static", "dynamic", "pose", "fov"}
-    if name == "f32":
+    if name in F32:
         worst64 = max(_rel(masked["g64"][p], masked["jg64"][p]) for p in masked["jg64"])
         print(f"compacted step, float64: worst gradient difference {worst64:.3e} of scale")
         assert worst64 <= 1e-6
-    base = 1e-4 if name == "f32" else 1e-3
+    base = 1e-4 if name in F32 else 1e-3
     worst = []
     for path in sorted(jg, key=str):
         rel = _rel(tg[path], jg[path])

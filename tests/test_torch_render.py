@@ -139,10 +139,22 @@ def test_metrics_match_jax(seed):
         ours, mm_o = tmetrics.visualize_depth_numpy(depth, mm)
         ref, mm_r = jmetrics.visualize_depth_numpy(depth, mm)
         assert np.allclose(mm_o, mm_r)
-        # cv2's JET table differs from the formula by one level at one entry
+        # the port carries cv2's JET table (test_jet_table_matches_cv2)
         assert np.abs(ours.astype(int) - ref.astype(int)).max() <= 1
     flow = rng.normal(0, 3, (19, 27, 2)).astype(np.float32)
     np.testing.assert_array_equal(flow_to_image(flow), jflow_to_image(flow))
+
+
+def test_jet_table_matches_cv2():
+    """The port's JET colormap is cv2's at all 256 levels (the JAX package
+    colours depth with cv2.applyColorMap), without importing cv2 itself."""
+    cv2 = pytest.importorskip("cv2")
+    levels = np.arange(256, dtype=np.uint8)
+    want = cv2.applyColorMap(levels.reshape(256, 1), cv2.COLORMAP_JET)[:, 0, ::-1]
+    np.testing.assert_array_equal(tmetrics.jet_colormap(levels), want)
+    img = levels.reshape(16, 16)
+    np.testing.assert_array_equal(tmetrics.jet_colormap(img),
+                                  cv2.applyColorMap(img, cv2.COLORMAP_JET)[..., ::-1])
 
 
 def test_lpips_without_weights_is_none(capsys):

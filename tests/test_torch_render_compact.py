@@ -187,3 +187,68 @@ def test_chip_smoke_compaction_phases_rehearse_on_the_cpu(monkeypatch):
     assert app["launches_per_step"] == {"coalesce": 15 + 3, "segsum": 12 + 3}
     assert {c["field"] for c in info["compact_cases"]} == {"static", "dynamic"}
     assert len(info["compact_cases"]) == 6
+
+
+def test_chip_smoke_memory_phases_rehearse_on_the_cpu(monkeypatch):
+    """chip_smoke.py phases 10a-10d at a small size on the CPU (the card's
+    timers, memory and profiler stubbed, the kernel wrappers counted where
+    their plain versions run): the three memory paths with their resolved
+    policies and launch counts, the upsample walk over the recipe's seven
+    upsamples (to 32³ here, four micro-batches) with its single-batch steps,
+    its save and its kernel checks, and the TINY accumulated, batched and
+    rematerialized steps."""
+    import chip_smoke as cs
+    from rodynrf_tpu_torch.data import make_synthetic_scene
+    from rodynrf_tpu_torch.ops import coalesced, segsum
+
+    def counting(fn):
+        def shim(*a, **k):
+            shim.launches += 1
+            return fn(*a, **k)
+        shim.launches = 0
+        return shim
+
+    shim = counting(segsum.segment_rows_sum_factored)
+    monkeypatch.setattr(segsum, "segment_rows_sum_factored", shim)
+    monkeypatch.setattr(coalesced, "segment_rows_sum_factored", shim)
+    monkeypatch.setattr(coalesced, "coalesce_table_grad",
+                        counting(coalesced.coalesce_table_grad))
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(cs, "median_ms", lambda fn, *a, **k: (fn(), (0.0, 0.0))[1])
+    monkeypatch.setattr(cs, "profile_step", lambda tr: {
+        "profiled_wall_ms": 1.0, "device_busy_ms": 0.0, "device_launches": 0,
+        "table_grad_device_ms": 0.0})
+    monkeypatch.setattr(cs, "WARM_STEPS", 1)
+    monkeypatch.setattr(cs, "TIMED_STEPS", 1)
+    # 4 micro-batches of 64 rays over 4 frames: every frame keeps rays (the
+    # monodepth normalisation of a frame without rays has no finite
+    # gradient, in the JAX package as in the port)
+    small = ["--N_voxel_init", "32768", "--batch_size", "256", "--N_voxel_t", "4"]
+    monkeypatch.setattr(cs, "CONFIG_MEMORY", {k: v + small for k, v in cs.CONFIG_MEMORY.items()})
+    scene = make_synthetic_scene(T=4, H=16, W=24, ray_type="ndc")
+    accum4, fused, remat = cs.drive_memory_paths(scene, "cpu", device="cpu")
+    assert (accum4["grad_accum"], fused["fused_passes"], remat["remat"]) == (4, True, True)
+    for rec in (accum4, fused, remat):
+        assert rec["launches"] == {k: 2 * v for k, v in rec["launches_per_step"].items()}
+    # one static and one dynamic evaluation carry gradients in a batched step
+    assert fused["pass_chunk"] >= 4 and fused["launches_per_step"] == {"coalesce": 3, "segsum": 3}
+    assert accum4["launches_per_step"] == {"coalesce": 4 * 15, "segsum": 4 * 12}
+
+    monkeypatch.setattr(cs, "CONFIG_WALK", cs.CONFIG_WALK + [
+        "--N_voxel_final", "32768", "--batch_size", "256", "--grad_accum", "4",
+        "--N_voxel_t", "4"])
+    monkeypatch.setattr(cs, "WALK_FINAL_GRID", (35, 39, 23))
+    monkeypatch.setattr(cs, "WALK_STEPS", 1)
+    walk, cases = cs.walk_schedule(scene, "cpu", device="cpu")
+    assert len(walk["sizes"]) == 8 and walk["grad_accum"] == 4
+    assert [s["grid"] for s in walk["sizes"]][::7] == [[17, 19, 11], [35, 39, 23]]
+    assert walk["save_full_bytes"] > 0 and walk["launches"]["coalesce"] > 0
+    assert [(r["grad_accum"], r["remat"]) for r in walk["one_batch_640"]] == [(1, True),
+                                                                            (1, False)]
+    assert {c["case"].split()[0] for c in cases} == {"static", "dynamic"} and len(cases) == 6
+    assert all(c["M"] == 64 * walk["sizes"][-1]["n_samples"] for c in cases)
+
+    tiny = cs.small_input_reference(device="cpu")
+    assert {"accum", "fused", "remat"} <= set(tiny)
