@@ -90,6 +90,27 @@ result):
          'auto' puts the 640³ dynamic field on the strided one);
      10d. (inside phase 5) the TINY accumulated, batched and
          rematerialized steps on the card against the CPU;
+  11. (after 7) preprocessing on the card: phase 7's scene written again
+     from its seed, its synthetic flow, disparity and masks removed;
+     11a. `python -m rodynrf_tpu_torch.preprocess flow` with a RAFT
+         checkpoint of seeded random weights in the official layout (the
+         >=2-D weights halved), at a 768 long side (432x768), 20
+         refinements: ms per pair (median, first pair excluded), peak GiB,
+         every flow finite;
+     11b. `... depth` with a DPT-Large checkpoint of random weights at
+         lower_bound_size(540, 960) = 384x704: ms per frame (median, first
+         excluded), peak GiB, parameter bytes;
+     11c. `... mask` from 11a's flows, LMedS on the card: seconds per
+         frame, the masks' mean share (no semantic half: no Mask-RCNN
+         weights);
+     11d. load_scene reads 11a-c's files and the phase-7 recipe (300³,
+         one batch in store mode) takes 3 steps on them: every loss finite,
+         kernel launches equal to launches per step x steps;
+     11e. RAFT (128x128, 4 refinements) and the narrow DPT of
+         tests/test_preprocess.py:93 (96x128) on the card against the CPU
+         (max EPE <= 1e-3 px, max relative error <= 1e-4), and the LMedS
+         mask of one flow on both from one generator seed (>= 99% of
+         pixels agree); one `preprocess` JSON line;
   6. (printed last) a `main_path` JSON line per path, one JSON line of
      kernels, the nvidia-smi line, and the result line.
 
@@ -108,6 +129,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
@@ -150,6 +172,14 @@ GOLDEN_GRAD_RTOL, GOLDEN_MIN_PSNR = 1e-3, 50.0
 WARM_STEPS, TIMED_STEPS = 2, 5
 KERNEL_RTOL = 1e-4  # of max|plain|: f32 sums of ≤ a few hundred terms, another order
 KERNELS = ("coalesce", "segsum")
+# phase 11: preprocessing at the reference's sizes (RAFT at a 768 long side
+# with 20 refinements, DPT-Large at the lower-bound size), with the names the
+# Nvidia loader reads (flow/%03d_*.npz, disp/%03d.npy)
+PRE_LONG_SIDE, PRE_ITERS, PRE_ZFILL = 768, 20, 3
+PRE_DPT = {}  # DPTConfig arguments: DPT-Large
+NARROW_DPT = dict(dim=64, heads=4, blocks=4, hooks=(0, 1, 2, 3), reassemble=(16, 32, 64, 64),
+                  features=32)  # tests/test_preprocess.py:93
+RAFT_EPE_LIMIT, DPT_REL_LIMIT, LMEDS_AGREE_MIN = 1e-3, 1e-4, 0.99  # 11e, card vs CPU
 
 
 def log(*a):
@@ -1073,6 +1103,255 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
     return {"path": "cli", "launches": launches, "launches_per_step": per_step}
 
 
+def write_raft_checkpoint(path: Path, seed: int = 7) -> Path:
+    """A RAFT checkpoint with seeded random weights in the official layout
+    (DataParallel `module.` keys), the ≥2-D weights halved so that 20
+    refinements of random weights stay finite (tests/test_weight_conversion.py
+    does the same)."""
+    from rodynrf_tpu_torch.preprocess.raft import RAFT
+
+    torch.manual_seed(seed)
+    model = RAFT()
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim > 1:
+                p.mul_(0.5)
+    torch.save({"module." + k: v for k, v in model.state_dict().items()}, path)
+    return path
+
+
+def random_dpt(cfg, seed: int, device: str = "cpu"):
+    """A DPTDepthModel of seeded random weights with zero biases (the JAX
+    package's init_dpt_params rule: with torch's default random biases the
+    final ReLU gives an all-zero depth map)."""
+    from rodynrf_tpu_torch.preprocess.dpt import DPTDepthModel
+
+    torch.manual_seed(seed)
+    with torch.device(device):
+        model = DPTDepthModel(cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+        model.pretrained.model.pos_embed.normal_(0.0, 0.02)
+        model.pretrained.model.cls_token.normal_(0.0, 0.02)
+    return model
+
+
+def write_dpt_checkpoint(path: Path, cfg, device: str, seed: int = 11) -> int:
+    """A DPT checkpoint of random_dpt's weights in the official layout (the
+    ViT's ImageNet classifier included); returns the model's parameter
+    bytes."""
+    model = random_dpt(cfg, seed, device)
+    with torch.device(device):
+        sd = dict(model.state_dict())
+        sd["pretrained.model.head.weight"] = torch.zeros(1000, cfg.dim)
+        sd["pretrained.model.head.bias"] = torch.zeros(1000)
+    torch.save({k: v.cpu() for k, v in sd.items()}, path)
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def drive_preprocess(smi: str, per_step: dict, device: str = "cuda"):
+    """Phase 11 on phase 7's on-disk scene (written again from its seed):
+    its synthetic flow, disparity and masks removed, 11a RAFT flow, 11b DPT disparity, 11c motion masks (each
+    through `python -m rodynrf_tpu_torch.preprocess`'s main, from random
+    checkpoints in the official layouts), 11d three steps of the phase-7
+    recipe on what they wrote (launch counts checked), 11e the networks and
+    the LMedS on the card against the CPU. Returns the 11d main-path record
+    and the `preprocess` line's readings. (`device` and the module's PRE_*
+    sizes let the phase be rehearsed on the CPU at a small size.)"""
+    import shutil
+    import tempfile
+
+    from rodynrf_tpu_torch.testing import write_video_scene
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_preprocess_"))
+    try:
+        write_video_scene(str(root / "scene"), **CLI_SCENE)
+        for sub in ("flow", "disp", "motion_masks"):
+            shutil.rmtree(root / "scene" / sub)
+        return _preprocess_and_train(root / "scene", smi, per_step, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _preprocess_and_train(scene: Path, smi: str, per_step: dict, device: str):
+    from rodynrf_tpu_torch.data.video_dataset import load_scene
+    from rodynrf_tpu_torch.preprocess import generate_depth
+    from rodynrf_tpu_torch.preprocess import main as preprocess
+    from rodynrf_tpu_torch.preprocess.dpt import DPTConfig
+    from rodynrf_tpu_torch.train import Trainer, config_parser
+
+    ckpt = scene.parent / "preprocess_ckpt"
+    ckpt.mkdir()
+    raft_path = write_raft_checkpoint(ckpt / "raft-random.pth")
+    dpt_cfg = DPTConfig(**PRE_DPT)
+    t0 = time.time()
+    dpt_bytes = write_dpt_checkpoint(ckpt / "dpt-random.pt", dpt_cfg, device)
+    dpt_ckpt_s = time.time() - t0
+    data = ["--dataset_path", str(scene), "--zfill", str(PRE_ZFILL)]
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        rep = fn()
+        torch.cuda.synchronize()
+        rep["command_s"] = time.time() - t0
+        rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if not rep.get("finite", True):
+            raise AssertionError(f"{label}: a non-finite output")
+        return rep
+
+    flow = run("11a flow", lambda: preprocess(
+        ["flow", *data, "--model", str(raft_path), "--iters", str(PRE_ITERS),
+         "--long_side", str(PRE_LONG_SIDE)], device))
+    depth = run("11b depth", lambda: generate_depth.main(
+        [*data, "--model", str(ckpt / "dpt-random.pt")], device, dpt_cfg))
+    masks = run("11c masks", lambda: preprocess(["mask", *data], device))
+    T = CLI_SCENE["T"]
+    for sub, n in (("flow", 2 * (T - 1)), ("disp", T), ("epipolar_error_png", T)):
+        if len(list((scene / sub).iterdir())) != n:
+            raise AssertionError(f"preprocessing wrote {sub}/ without its {n} files")
+    disp = np.stack([np.load(p) for p in sorted((scene / "disp").glob("*.npy"))])
+    if not np.ptp(disp) > 0:
+        raise AssertionError("11b: every disparity map is constant")
+
+    argv = [RECIPE[0], RECIPE[1], "--datadir", str(scene), "--basedir", str(scene.parent / "log"),
+            "--expname", "preprocessed", "--downsample_train", "2", "--N_voxel_init", CLI_VOXELS,
+            "--n_iters", str(CLI_STEPS), "--use_foreground_mask", "epipolar_error_png",
+            *ONE_BATCH]
+    args = config_parser(argv)
+    t0 = time.time()
+    sc = load_scene(args)
+    load_s = time.time() - t0
+    if not (np.isfinite(sc.flows_f).all() and np.isfinite(sc.disps).all()):
+        raise AssertionError("the loaded preprocessed scene is not finite")
+    tr = Trainer(args, sc, device=device)
+    reset_counters()
+    losses = [float(tr.run_step()["total_loss"]) for _ in range(CLI_STEPS)]
+    launches = counters()
+    del tr
+    want = {k: v * CLI_STEPS for k, v in per_step.items()}
+    if launches != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"11d: losses {losses}, launches {launches} != {want}")
+    info = {
+        "scene": f"{T}x{CLI_SCENE['H']}x{CLI_SCENE['W']} (phase 7's, frames only)",
+        "weights": "seeded random, official key layouts (no checkpoints in the repository)",
+        "flow": {"size": flow["size"], "iters": PRE_ITERS, "pairs": len(flow["raft_s"]),
+                 "ms_per_pair_median": _median_ms(flow["raft_s"][1:]),
+                 "ms_per_pair": [1e3 * s for s in flow["raft_s"]],
+                 "pair_s_with_io": flow["pair_s"], "command_s": flow["command_s"],
+                 "peak_gib": flow["peak_gib"], "finite": flow["finite"]},
+        "depth": {"size": depth["size"], "frames": len(depth["dpt_s"]),
+                  "ms_per_frame_median": _median_ms(depth["dpt_s"][1:]),
+                  "ms_per_frame": [1e3 * s for s in depth["dpt_s"]],
+                  "command_s": depth["command_s"], "peak_gib": depth["peak_gib"],
+                  "param_bytes": dpt_bytes, "checkpoint_write_s": dpt_ckpt_s,
+                  "config": dict(PRE_DPT) or "DPT-Large", "finite": depth["finite"],
+                  "disp_max": float(disp.max()), "disp_positive_share": float((disp > 0).mean())},
+        "masks": {"s_per_frame_median": _median_ms(masks["frame_s"]) / 1e3,
+                  "frame_s": masks["frame_s"], "mask_share_mean": float(np.mean(
+                      masks["mask_share"])), "command_s": masks["command_s"],
+                  "peak_gib": masks["peak_gib"],
+                  "semantic": "absent: no Mask-RCNN weights in the repository"},
+        "train": {"load_scene_s": load_s, "steps": CLI_STEPS, "losses": losses,
+                  "fg_mask_mean": float(sc.fg_masks.mean()), "launches": launches},
+        "card_vs_cpu": compare_preprocess_devices(raft_path, device),
+        "profile": (profile_preprocess_networks(raft_path, ckpt / "dpt-random.pt", dpt_cfg,
+                                                flow["size"], depth["size"])
+                    if device == "cuda" else {}),
+        "card": smi,
+    }
+    return {"path": "preprocess", "launches": launches, "launches_per_step": per_step}, info
+
+
+def profile_preprocess_networks(raft_path: Path, dpt_path: Path, cfg, flow_hw, depth_hw):
+    """One RAFT pair (batch 2, PRE_ITERS refinements) and one DPT frame at
+    the phase's sizes: CUDA-event ms (median of 3 windows of 3 calls), the
+    profiler's device-busy ms and device activities per call, and the idle
+    share between them."""
+    from rodynrf_tpu_torch.preprocess.dpt import load_dpt
+    from rodynrf_tpu_torch.preprocess.raft import load_raft
+
+    raft = load_raft(str(raft_path), "cuda")
+    dpt = load_dpt(str(dpt_path), "cuda", cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = 255 * torch.rand(2, 3, *flow_hw, device="cuda", generator=gen)
+    b = 255 * torch.rand(2, 3, *flow_hw, device="cuda", generator=gen)
+    x = torch.rand(1, 3, *depth_hw, device="cuda", generator=gen)
+
+    def pair():
+        with torch.inference_mode():
+            raft(a, b, iters=PRE_ITERS)
+
+    def frame():
+        with torch.inference_mode():
+            dpt(x)
+
+    out = {}
+    for name, fn in (("raft_pair", pair), ("dpt_frame", frame)):
+        ms, spread = median_ms(fn, windows=3, reps=3)
+        dev_ms, launches = device_profile(fn, reps=3)
+        out[name] = {"ms": ms, "spread_ms": spread, "device_ms": dev_ms,
+                     "device_activities": launches, "idle": 1.0 - dev_ms / ms}
+    del raft, dpt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _median_ms(seconds) -> float:
+    s = sorted(seconds)
+    return 1e3 * s[len(s) // 2] if s else float("nan")
+
+
+def compare_preprocess_devices(raft_path: Path, device: str) -> dict:
+    """Phase 11e: RAFT (11a's weights, 128×128, 4 refinements) and the narrow
+    DPT of tests/test_preprocess.py:93 (96×128) on `device` against the same
+    modules on the CPU, and the LMedS mask of one flow on both from the same
+    generator seed."""
+    from rodynrf_tpu_torch.preprocess.dpt import DPTConfig
+    from rodynrf_tpu_torch.preprocess.motion_masks import epipolar_error_map, motion_mask_for_frame
+    from rodynrf_tpu_torch.preprocess.raft import load_raft
+
+    rng = np.random.default_rng(3)
+    img1 = torch.from_numpy(rng.uniform(0, 255, (1, 3, 128, 128)).astype(np.float32))
+    img2 = (img1 + torch.from_numpy(rng.normal(0, 8, img1.shape).astype(np.float32))).clamp(0, 255)
+    flows = {}
+    for dev in (device, "cpu"):
+        with torch.inference_mode():
+            flows[dev] = load_raft(str(raft_path), dev)(img1.to(dev), img2.to(dev),
+                                                        iters=4).cpu()
+    epe = float(torch.linalg.vector_norm(flows[device] - flows["cpu"], dim=1).max())
+    flow_scale = float(torch.linalg.vector_norm(flows["cpu"], dim=1).max())
+
+    dpt = random_dpt(DPTConfig(**NARROW_DPT), seed=0)
+    img = torch.from_numpy(rng.uniform(0, 1, (1, 3, 96, 128)).astype(np.float32))
+    with torch.inference_mode():
+        ref = dpt(img)
+        got = dpt.to(device)(img.to(device)).cpu()
+    if not ref.abs().max() > 0:
+        raise AssertionError("11e: the narrow DPT's depth is all zero")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+
+    flow = flows["cpu"][0].permute(1, 2, 0).contiguous()
+    flow = 3.0 * flow / torch.linalg.vector_norm(flow, dim=-1).max().clamp_min(1e-12)
+    flow[40:80, 50:90, 1] += 6.0  # an independently moving patch
+    masks = {}
+    for dev in (device, "cpu"):
+        gen = torch.Generator().manual_seed(0)
+        err = epipolar_error_map(flow.to(dev), 128, 128, gen)
+        masks[dev] = motion_mask_for_frame([err], 128, 128).cpu()
+    agree = float((masks[device] == masks["cpu"]).float().mean())
+    out = {"raft_max_epe_px": epe, "raft_epe_limit_px": RAFT_EPE_LIMIT,
+           "raft_flow_scale_px": flow_scale, "dpt_max_rel": rel, "dpt_rel_limit": DPT_REL_LIMIT,
+           "lmeds_mask_agreement": agree, "lmeds_agreement_min": LMEDS_AGREE_MIN,
+           "lmeds_mask_share": float(masks["cpu"].mean())}
+    if not (epe <= RAFT_EPE_LIMIT and rel <= DPT_REL_LIMIT and agree >= LMEDS_AGREE_MIN):
+        raise AssertionError(f"11e: the card disagrees with the CPU: {out}")
+    return out
+
+
 def drive_compact_render(argv, rep, smi: str, device: str):
     """Phase 9d: --render_only of phase 7's checkpoint with the committed
     mask and --compact_eval 1 (every frame, the flat bucket per chunk), then
@@ -1496,6 +1775,12 @@ def main() -> int:
     default = records[1]
     records.append(drive_cli(smi, default["launches_per_step"], default["grid"],
                              default["n_samples"]))
+    torch.cuda.empty_cache()
+
+    # 11. preprocessing on the card from phase 7's frames, then training on it
+    pre_record, pre_info = drive_preprocess(smi, default["launches_per_step"])
+    records.append(pre_record)
+    log(json.dumps({"preprocess": pre_info}))
     torch.cuda.empty_cache()
 
     # 8. the golden gates on the card

@@ -8,13 +8,19 @@ none of those libraries, so the port carries its own:
 
 - a PNG codec on zlib + numpy: 8-bit gray, gray + alpha, RGB, RGBA and
   palette images, filters 0-4, not interlaced. Decoding is bit-identical to
-  PIL's; written files decode to the input under PIL;
+  PIL's; written files decode to the input under PIL. 16-bit images (the
+  depth preprocessing writes 16-bit gray, as cv2.imwrite of a uint16 array
+  does) are read and written as uint16 arrays;
 - PIL's antialiased resize of 8-bit images (`pil_resize`: LANCZOS and
   BILINEAR), the separable filter of Pillow's Resample.c with its 22-bit
   fixed-point coefficients and rounding, horizontal pass first;
 - cv2's INTER_LINEAR (half-pixel centres, no antialias) and INTER_NEAREST
   (floor of dst·in/out) resizes of float arrays (`resize_linear`,
-  `resize_nearest`).
+  `resize_nearest`);
+- on torch tensors, so that the preprocessing runs them on the card:
+  cv2's INTER_AREA and INTER_CUBIC resizes of float images (`resize_area`,
+  `resize_cubic`) and its `remap` with INTER_CUBIC and BORDER_CONSTANT 0
+  (`remap_cubic`), with cv2's coefficients and edge rules.
 
 Other formats (JPEG frames) go through PIL when it can be imported and
 raise otherwise.
@@ -27,6 +33,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -77,8 +84,9 @@ def _unfilter(raw: np.ndarray, H: int, W: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode a PNG: [H, W] uint8 for gray, [H, W, C] for gray + alpha (2),
-    RGB (3), RGBA (4); palette images expand to RGB or RGBA."""
+    """Decode a PNG: [H, W] for gray, [H, W, C] for gray + alpha (2), RGB
+    (3), RGBA (4); palette images expand to RGB or RGBA. uint8 for 8-bit
+    files, uint16 for 16-bit ones."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIG:
@@ -102,12 +110,15 @@ def read_png(path: str) -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: PNG without IHDR")
     W, H, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _CHANNELS or interlace:
+    if (depth, ctype) not in ((8, 0), (8, 2), (8, 3), (8, 4), (8, 6), (16, 0), (16, 2),
+                              (16, 4), (16, 6)) or interlace:
         raise ValueError(f"{path}: PNG of bit depth {depth}, colour type {ctype}, interlace "
-                         f"{interlace} is not supported (8-bit, not interlaced only)")
-    bpp = _CHANNELS[ctype]
+                         f"{interlace} is not supported (8 or 16 bits, not interlaced only)")
+    bpp = _CHANNELS[ctype] * depth // 8  # bytes per pixel, the filters' unit
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     img = _unfilter(raw[: H * (1 + W * bpp)], H, W, bpp)
+    if depth == 16:  # samples are big-endian
+        img = np.ascontiguousarray(img).view(">u2").astype(np.uint16)
     if ctype == 3:
         if plte is None:
             raise ValueError(f"{path}: palette PNG without PLTE")
@@ -118,7 +129,7 @@ def read_png(path: str) -> np.ndarray:
         alpha = np.full(len(plte), 255, np.uint8)
         alpha[: len(trns)] = trns
         return np.concatenate([rgb, alpha[idx][..., None]], -1)
-    return img[..., 0] if bpp == 1 else img
+    return img[..., 0] if _CHANNELS[ctype] == 1 else img
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -127,11 +138,12 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
-    """Write a uint8 image ([H, W] gray, [H, W, 1|2|3|4]) as a PNG with the
-    Sub filter on every row."""
+    """Write a uint8 or uint16 image ([H, W] gray, [H, W, 1|2|3|4]) as an
+    8- or 16-bit PNG with the Sub filter on every row."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8 images, not {img.dtype}")
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"write_png takes uint8 or uint16 images, not {img.dtype}")
+    depth = 8 * img.dtype.itemsize
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
     if img.ndim == 2:
@@ -142,11 +154,14 @@ def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
     else:
         raise ValueError(f"write_png: unsupported image shape {img.shape}")
     H, W = img.shape[:2]
+    if depth == 16:  # big-endian samples; the filters work on bytes
+        img = img.astype(">u2").view(np.uint8)
+        bpp *= 2
     px = img.reshape(H, W, bpp)
     sub = px.copy()
     sub[:, 1:] = px[:, 1:] - px[:, :-1]  # uint8 arithmetic wraps mod 256
     raw = np.concatenate([np.ones((H, 1), np.uint8), sub.reshape(H, W * bpp)], 1)
-    ihdr = struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", W, H, depth, ctype, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIG + _chunk(b"IHDR", ihdr)
                 + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
@@ -297,3 +312,142 @@ def resize_nearest(a: np.ndarray, wh) -> np.ndarray:
     ys = np.minimum(np.floor(np.arange(H) * (1.0 / (H / a.shape[0]))).astype(np.int64),
                     a.shape[0] - 1)
     return a[ys][:, xs]
+
+
+# ---------------------------------------------------------------------------
+# cv2's INTER_AREA and INTER_CUBIC resizes and its cubic remap, on tensors
+# ---------------------------------------------------------------------------
+
+def _cubic_coeffs(x):
+    """cv2's interpolateCubic (imgproc/src/resize.cpp, A = -0.75) of float32
+    offsets x in [0, 1): the four tap weights [..., 4], in float32."""
+    x = np.asarray(x, np.float32)
+    A = np.float32(-0.75)
+    one = np.float32(1.0)
+    c0 = ((A * (x + one) - 5 * A) * (x + one) + 8 * A) * (x + one) - 4 * A
+    c1 = ((A + 2) * x - (A + 3)) * x * x + one
+    c2 = ((A + 2) * (one - x) - (A + 3)) * (one - x) * (one - x) + one
+    c3 = one - c0 - c1 - c2
+    return np.stack([c0, c1, c2, c3], -1).astype(np.float32)
+
+
+def _cubic_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] weights of cv2's INTER_CUBIC along one axis: half-pixel
+    centres, taps sx-1..sx+2 clamped to the edge (BORDER_REPLICATE). The
+    source position and its fractional part are taken in float64, the
+    weights in float32 (as the installed cv2 does)."""
+    scale = 1.0 / (n_out / n_in)
+    fx = (np.arange(n_out) + 0.5) * scale - 0.5
+    sx = np.floor(fx).astype(np.int64)
+    coeffs = _cubic_coeffs(fx - sx)
+    m = np.zeros((n_out, n_in), np.float64)
+    for k in range(4):
+        np.add.at(m, (np.arange(n_out), np.clip(sx - 1 + k, 0, n_in - 1)), coeffs[:, k])
+    return m.astype(np.float32)
+
+
+def _area_tab_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] weights of cv2's INTER_AREA decimation along one axis
+    (computeResizeAreaTab): each output cell averages the input pixels it
+    covers, the partly covered ones by their covered share."""
+    scale = 1.0 / (n_out / n_in)
+    m = np.zeros((n_out, n_in), np.float64)
+    for dx in range(n_out):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, n_in - fsx1)
+        sx2 = min(math.floor(fsx2), n_in - 1)
+        sx1 = min(math.ceil(fsx1), sx2)
+        if sx1 - fsx1 > 1e-3:
+            m[dx, sx1 - 1] += np.float32((sx1 - fsx1) / cell)
+        for sx in range(sx1, sx2):
+            m[dx, sx] += np.float32(1.0 / cell)
+        if fsx2 - sx2 > 1e-3:
+            m[dx, sx2] += np.float32(min(min(fsx2 - sx2, 1.0), cell) / cell)
+    return m.astype(np.float32)
+
+
+def _area_linear_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] weights of cv2's INTER_AREA when an axis is enlarged:
+    two taps at floor(dx · in/out), the second weighted by the fractional
+    part of (dx + 1) - (sx + 1) · out/in (resizeGeneric's area mode)."""
+    scale = 1.0 / (n_out / n_in)
+    inv = n_out / n_in
+    m = np.zeros((n_out, n_in), np.float64)
+    for dx in range(n_out):
+        sx = math.floor(dx * scale)
+        fx = (dx + 1) - (sx + 1) * inv
+        fx = 0.0 if fx <= 0 else float(np.float32(fx - math.floor(fx)))
+        if sx >= n_in - 1:
+            fx, sx = 0.0, n_in - 1
+        m[dx, sx] += np.float32(1.0 - fx)
+        m[dx, min(sx + 1, n_in - 1)] += np.float32(fx)
+    return m.astype(np.float32)
+
+
+def _separable(img: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
+    x = img.float()
+    mh = torch.from_numpy(mh).to(x.device)
+    mw = torch.from_numpy(mw).to(x.device)
+    if x.ndim == 2:
+        return mh @ x @ mw.T
+    return torch.einsum("hH,HWc,wW->hwc", mh, x, mw)
+
+
+def resize_area(img: torch.Tensor, wh) -> torch.Tensor:
+    """cv2.resize(img, wh, interpolation=cv2.INTER_AREA) of a float [H, W] or
+    [H, W, C] tensor: area averaging when neither axis grows (960 → 768 is a
+    non-integer 0.8, with partly covered pixels weighted by their share),
+    cv2's area-mode two-tap rule on both axes otherwise."""
+    W, H = int(wh[0]), int(wh[1])
+    h0, w0 = img.shape[:2]
+    if w0 / W >= 1 and h0 / H >= 1:
+        return _separable(img, _area_tab_matrix(h0, H), _area_tab_matrix(w0, W))
+    return _separable(img, _area_linear_matrix(h0, H), _area_linear_matrix(w0, W))
+
+
+def resize_cubic(img: torch.Tensor, wh) -> torch.Tensor:
+    """cv2.resize(img, wh, interpolation=cv2.INTER_CUBIC) of a float [H, W]
+    or [H, W, C] tensor: a = -0.75, half-pixel centres, edge pixels
+    repeated."""
+    W, H = int(wh[0]), int(wh[1])
+    h0, w0 = img.shape[:2]
+    return _separable(img, _cubic_matrix(h0, H), _cubic_matrix(w0, W))
+
+
+def remap_cubic(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """cv2.remap(img, xy, None, cv2.INTER_CUBIC, borderMode=BORDER_CONSTANT)
+    with border value 0: img [H, W] or [H, W, C] float, xy [h, w, 2] float32
+    absolute source coordinates (x, y). The 4×4 taps around floor(xy) are
+    weighted by interpolateCubic of the float32 fractional parts (the
+    installed cv2 takes the map's coordinates as they are, with no 1/32
+    pixel table); taps outside the image read 0."""
+    x = img.float()
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[..., None]
+    H, W, C = x.shape
+    pos = xy.float()
+    base = torch.floor(pos)
+    frac = pos - base
+    base = base.clamp(-2.0**30, 2.0**30).to(torch.int64) - 1  # [h, w, 2]: first tap
+    A = -0.75
+
+    def coeffs(t):
+        c0 = ((A * (t + 1) - 5 * A) * (t + 1) + 8 * A) * (t + 1) - 4 * A
+        c1 = ((A + 2) * t - (A + 3)) * t * t + 1
+        c2 = ((A + 2) * (1 - t) - (A + 3)) * (1 - t) * (1 - t) + 1
+        return (c0, c1, c2, 1 - c0 - c1 - c2)
+
+    wx, wy = coeffs(frac[..., 0]), coeffs(frac[..., 1])
+    flat = x.reshape(H * W, C)
+    out = torch.zeros(xy.shape[:2] + (C,), dtype=torch.float32, device=x.device)
+    for j in range(4):
+        yj = base[..., 1] + j
+        for i in range(4):
+            xi = base[..., 0] + i
+            inside = (xi >= 0) & (xi < W) & (yj >= 0) & (yj < H)
+            idx = (yj.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).reshape(-1)
+            v = flat[idx].reshape(out.shape)
+            out = out + v * (wy[j] * wx[i] * inside)[..., None]
+    return out[..., 0] if squeeze else out

@@ -3,8 +3,8 @@ TrainStep.grads_and_metrics) against the JAX package's scan
 (rodynrf_tpu/train/step.py make_train_step), and the port's auto rule
 against the JAX trainer's (Trainer._grad_accum), at the TINY shapes.
 
-- Accumulation of 2 and of 4 micro-batches, golden_det, identical weights
-  and ray batch: every metric (the mean over the micro-batches) to 1e-5
+- Accumulation of 2 and (test_torch_grad_accum_4.py) of 4 micro-batches,
+  golden_det, identical weights and ray batch: every metric (the mean over the micro-batches) to 1e-5
   relative; every gradient of a float64 run to 1e-6 of scale of the JAX
   x64 run; every float32 gradient to 1e-4 of scale, the ILL_CONDITIONED
   leaves of test_torch_step.py to 1e-4 plus twice the JAX package's own
@@ -83,7 +83,13 @@ def _accumulated(A):
     )
 
 
-@pytest.mark.parametrize("A", [2, 4])
+# 4 micro-batches run in test_torch_grad_accum_4.py (a file of its own spreads
+# the two JAX compilations over the test workers)
+@pytest.fixture(params=[2])
+def A(request):
+    return request.param
+
+
 def test_accumulated_metrics_match_jax(A):
     r = _accumulated(A)
     jm, tm = r["jm"], r["tm"]
@@ -92,7 +98,6 @@ def test_accumulated_metrics_match_jax(A):
         np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5, atol=1e-9, err_msg=k)
 
 
-@pytest.mark.parametrize("A", [2, 4])
 def test_accumulated_gradients_match_jax(A):
     r = _accumulated(A)
     jg, jg64, tg, g64 = r["jg"], r["jg64"], r["tg"], r["g64"]

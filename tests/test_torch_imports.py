@@ -44,7 +44,12 @@ def test_port_imports_no_jax_and_builds_nothing():
     expected = {"rodynrf_tpu_torch.ops.coalesced", "rodynrf_tpu_torch.ops.fused_vm",
                 "rodynrf_tpu_torch.ops.segsum", "rodynrf_tpu_torch.train.step",
                 "rodynrf_tpu_torch.train.trainer", "rodynrf_tpu_torch.fields.alpha_mask",
-                "rodynrf_tpu_torch.ops.compaction"}
+                "rodynrf_tpu_torch.ops.compaction", "rodynrf_tpu_torch.preprocess.raft",
+                "rodynrf_tpu_torch.preprocess.dpt", "rodynrf_tpu_torch.preprocess.motion_masks",
+                "rodynrf_tpu_torch.preprocess.generate_flow",
+                "rodynrf_tpu_torch.preprocess.generate_depth",
+                "rodynrf_tpu_torch.preprocess.generate_mask", "rodynrf_tpu_torch.data.colmap",
+                "rodynrf_tpu_torch.utils.profiling"}
     assert expected <= set(res["modules"])
     assert res["bad"] == []
     assert res["started"] == []

@@ -14,9 +14,8 @@ batches). The merged layout, bf16 and the upsample: test_torch_step_merged.py.
   JAX package's own float32 gradient lies up to 4e-4 of scale off its
   float64 one there. Each of them is held to 1e-4 plus twice that
   reference noise, which the JAX package alone sets.
-- Two `Trainer.run_step` calls give the same losses at 1e-4. Parameters are
-  not compared after Adam, whose scale-free update turns ulp-level gradient
-  differences into lr-sized steps (GOLDEN.md §4).
+- Two `Trainer.run_step` calls, the unshared forward and the memory options
+  through the trainer: tests/test_torch_step_runs.py.
 """
 
 import jax
@@ -229,38 +228,6 @@ def test_float32_error_sits_in_the_dynamic_field_evaluation(step_pair, monkeypat
         assert abs(e - base) <= 0.1 * base, (name, e, base)
 
 
-def test_two_run_steps_match():
-    jtr, ttr = _trainers()
-    for _ in range(2):
-        jm = {k: float(v) for k, v in jtr.run_step().items()}
-        tm = {k: float(v) for k, v in ttr.run_step().items()}
-        assert set(jm) == set(tm)
-        for k in sorted(jm):
-            np.testing.assert_allclose(tm[k], jm[k], rtol=1e-4, atol=1e-7, err_msg=k)
-    assert jtr.iteration == ttr.iteration == 2
-
-
-def test_shared_and_unshared_forward_agree():
-    """--share_forward 0 evaluates A/B's static field on their own (detached)
-    samples; in golden_det mode those are E's samples, so losses and
-    gradients equal the shared path's (the JAX package's contract)."""
-    out = []
-    for share in (1, 0):
-        args = tparse(CMD + f" --share_forward {share}")
-        args.golden_det = 1
-        tr = TTrainer(args, ttiny_scene("ndc"), device="cpu")
-        ps = PermutationSampler(tr.scene.n_rays, args.batch_size, 7)
-        ri, rr = torch.as_tensor(ps.nextids()), torch.as_tensor(ps.nextids())
-        sc = {"iteration": IT, "focal_fixed": tr.focal_fixed, **tr.schedule.scalars(IT)}
-        out.append(tr.step_fn.grads_and_metrics(tr.params, tr.aabb, tr.data, ri, rr, None, sc))
-    (g1, m1), (g0, m0) = out
-    for k in m1:
-        np.testing.assert_allclose(float(m0[k]), float(m1[k]), rtol=1e-6, atol=1e-9, err_msg=k)
-    for (path, a), (_, b) in zip(_leaves(params_to_numpy(g1)), _leaves(params_to_numpy(g0))):
-        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6 * float(np.abs(a).max()),
-                                   err_msg=str(path))
-
-
 @pytest.mark.parametrize("flag", [
     "--n_devices 2", "--ckpt some.npz", "--grad_impl csum", "--shard_grids 1",
 ])
@@ -269,22 +236,6 @@ def test_unported_options_raise(flag):
     error = FileNotFoundError if flag.startswith("--ckpt") else NotImplementedError
     with pytest.raises(error):
         TTrainer(tparse(tiny_cmd("ndc", 1) + " " + flag), ttiny_scene("ndc"), device="cpu")
-
-
-@pytest.mark.parametrize("flag,field,value", [
-    ("--fused_passes 1", "fused_passes", True),
-    ("--remat on", "remat", True),
-    ("--grad_accum 2", "grad_accum", 2),
-])
-def test_memory_options_run_through_the_trainer(flag, field, value):
-    """The JAX package's single-card memory options reach the port's step
-    and train: two run_steps with finite losses."""
-    tr = TTrainer(tparse(tiny_cmd("ndc", 1) + " " + flag), ttiny_scene("ndc"), device="cpu")
-    assert getattr(tr.step_fn.S, field) == value
-    for _ in range(2):
-        metrics = tr.run_step()
-        assert all(np.isfinite(float(v)) for v in metrics.values())
-    assert tr.iteration == 2
 
 
 def test_entry_points_default_to_the_card():
