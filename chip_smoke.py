@@ -101,8 +101,9 @@ result):
          lower_bound_size(540, 960) = 384x704: ms per frame (median, first
          excluded), peak GiB, parameter bytes;
      11c. `... mask` from 11a's flows, LMedS on the card: seconds per
-         frame, the masks' mean share (no semantic half: no Mask-RCNN
-         weights);
+         frame, the masks' mean share, how many of the maps LMedS accepted
+         an F on (at least one, or the phase fails; no semantic half: no
+         Mask-RCNN weights);
      11d. load_scene reads 11a-c's files and the phase-7 recipe (300³,
          one batch in store mode) takes 3 steps on them: every loss finite,
          kernel launches equal to launches per step x steps;
@@ -110,7 +111,11 @@ result):
          tests/test_preprocess.py:93 (96x128) on the card against the CPU
          (max EPE <= 1e-3 px, max relative error <= 1e-4), and the LMedS
          mask of one flow on both from one generator seed (>= 99% of
-         pixels agree); one `preprocess` JSON line;
+         pixels agree); then at the scene's full size (540x960) the flow of
+         a synthetic two-view scene with an independently moving patch on
+         both: F accepted on each, the masks agree on >= 99% of pixels and
+         cover the patch (>= 90% of it, <= 10% of the static pixels); one
+         `preprocess` JSON line;
   6. (printed last) a `main_path` JSON line per path, one JSON line of
      kernels, the nvidia-smi line, and the result line.
 
@@ -180,6 +185,7 @@ PRE_DPT = {}  # DPTConfig arguments: DPT-Large
 NARROW_DPT = dict(dim=64, heads=4, blocks=4, hooks=(0, 1, 2, 3), reassemble=(16, 32, 64, 64),
                   features=32)  # tests/test_preprocess.py:93
 RAFT_EPE_LIMIT, DPT_REL_LIMIT, LMEDS_AGREE_MIN = 1e-3, 1e-4, 0.99  # 11e, card vs CPU
+PATCH_HIT_MIN, STATIC_HIT_MAX = 0.9, 0.1  # 11e at full size: mask share on / off the patch
 
 
 def log(*a):
@@ -1209,6 +1215,8 @@ def _preprocess_and_train(scene: Path, smi: str, per_step: dict, device: str):
     depth = run("11b depth", lambda: generate_depth.main(
         [*data, "--model", str(ckpt / "dpt-random.pt")], device, dpt_cfg))
     masks = run("11c masks", lambda: preprocess(["mask", *data], device))
+    if not any(masks["f_found"]):
+        raise AssertionError("11c: LMedS accepted no fundamental matrix on any flow")
     T = CLI_SCENE["T"]
     for sub, n in (("flow", 2 * (T - 1)), ("disp", T), ("epipolar_error_png", T)):
         if len(list((scene / sub).iterdir())) != n:
@@ -1253,11 +1261,13 @@ def _preprocess_and_train(scene: Path, smi: str, per_step: dict, device: str):
         "masks": {"s_per_frame_median": _median_ms(masks["frame_s"]) / 1e3,
                   "frame_s": masks["frame_s"], "mask_share_mean": float(np.mean(
                       masks["mask_share"])), "command_s": masks["command_s"],
-                  "peak_gib": masks["peak_gib"],
+                  "peak_gib": masks["peak_gib"], "maps": len(masks["f_found"]),
+                  "maps_with_f": sum(masks["f_found"]),
                   "semantic": "absent: no Mask-RCNN weights in the repository"},
         "train": {"load_scene_s": load_s, "steps": CLI_STEPS, "losses": losses,
                   "fg_mask_mean": float(sc.fg_masks.mean()), "launches": launches},
         "card_vs_cpu": compare_preprocess_devices(raft_path, device),
+        "lmeds_full_size": compare_full_size_lmeds(CLI_SCENE["H"], CLI_SCENE["W"], device),
         "profile": (profile_preprocess_networks(raft_path, ckpt / "dpt-random.pt", dpt_cfg,
                                                 flow["size"], depth["size"])
                     if device == "cuda" else {}),
@@ -1349,6 +1359,58 @@ def compare_preprocess_devices(raft_path: Path, device: str) -> dict:
            "lmeds_mask_share": float(masks["cpu"].mean())}
     if not (epe <= RAFT_EPE_LIMIT and rel <= DPT_REL_LIMIT and agree >= LMEDS_AGREE_MIN):
         raise AssertionError(f"11e: the card disagrees with the CPU: {out}")
+    return out
+
+
+def two_view_flow(H: int, W: int):
+    """Flow in pixels [H, W, 2] of a static scene (smooth depth, a camera
+    rotating and translating) with an independently moving patch, moved
+    H/12 px across the near-horizontal epipolar lines, and the patch's
+    mask."""
+    from rodynrf_tpu_torch.preprocess.motion_masks import get_uv_grid
+
+    uv = get_uv_grid(H, W).double().numpy()
+    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W), indexing="ij")
+    depth = 2.0 + 0.5 * np.sin(3 * xx) * np.cos(2 * yy) + 0.3 * yy
+    X = np.concatenate([uv * depth[..., None], depth[..., None]], -1)
+    a = 0.04
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    X2 = X @ R.T + np.array([0.08, 0.005, 0.03])
+    d = X2[..., :2] / X2[..., 2:] - uv
+    flow = np.stack([d[..., 0] * (W - 1) / 2, d[..., 1] * (H - 1) / 2], -1)
+    moving = np.zeros((H, W), bool)
+    moving[H // 3:H // 3 + H // 4, W // 2:W // 2 + W // 5] = True
+    flow[moving, 1] += H / 12
+    return torch.from_numpy(flow.astype(np.float32)), torch.from_numpy(moving)
+
+
+def compare_full_size_lmeds(H: int, W: int, device: str) -> dict:
+    """Phase 11e at the scene's size: the LMedS fit, quantile, threshold and
+    morphology of `two_view_flow` on `device` and on the CPU from one
+    generator seed. Each must accept an F, the masks must agree on >=
+    LMEDS_AGREE_MIN of the pixels, and the card's must cover the moving
+    patch (>= PATCH_HIT_MIN of it) and spare the static pixels (<=
+    STATIC_HIT_MAX of them)."""
+    from rodynrf_tpu_torch.preprocess.motion_masks import epipolar_fit, motion_mask_for_frame
+
+    flow, moving = two_view_flow(H, W)
+    masks, found, secs = {}, {}, {}
+    for dev in (device, "cpu"):
+        t0 = time.time()
+        err, found[dev] = epipolar_fit(flow.to(dev), H, W, torch.Generator().manual_seed(0))
+        masks[dev] = motion_mask_for_frame([err], H, W).cpu()
+        secs[dev] = time.time() - t0
+    m = masks[device]
+    out = {"size": [H, W], "f_found": found[device], "f_found_cpu": found["cpu"],
+           "mask_agreement": float((m == masks["cpu"]).float().mean()),
+           "agreement_min": LMEDS_AGREE_MIN, "mask_share": float(m.mean()),
+           "patch_share": float(moving.float().mean()),
+           "patch_hit": float(m[moving].mean()), "patch_hit_min": PATCH_HIT_MIN,
+           "static_hit": float(m[~moving].mean()), "static_hit_max": STATIC_HIT_MAX,
+           "fit_s": secs[device], "fit_s_cpu": secs["cpu"]}
+    if not (found[device] and found["cpu"] and out["mask_agreement"] >= LMEDS_AGREE_MIN
+            and out["patch_hit"] >= PATCH_HIT_MIN and out["static_hit"] <= STATIC_HIT_MAX):
+        raise AssertionError(f"11e: the full-size LMedS mask is wrong: {out}")
     return out
 
 

@@ -29,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..train.step import check_device
+
 
 @dataclass(frozen=True)
 class DPTConfig:
@@ -245,9 +247,11 @@ class DPTDepthModel(nn.Module):
         return s.output_conv(path)[:, 0]
 
 
-def load_dpt(path: str, device="cpu", cfg: DPTConfig = DPT_LARGE) -> DPTDepthModel:
+def load_dpt(path: str, device="cuda", cfg: DPTConfig = DPT_LARGE) -> DPTDepthModel:
     """An official DPT checkpoint (dpt_large-midas-2f21e586.pt) in a
-    DPTDepthModel on `device`: strict, after dropping the ViT's classifier."""
+    DPTDepthModel on `device` (the card unless the caller passes the CPU;
+    refuses without a card): strict, after dropping the ViT's classifier."""
+    device = check_device(device)
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and "state_dict" in raw:
         raw = raw["state_dict"]

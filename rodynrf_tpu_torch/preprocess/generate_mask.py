@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import argparse
 
-from ..train.step import check_device
 from .motion_masks import generate_motion_masks
 
 
@@ -26,7 +25,6 @@ def parse_args(argv=None):
 
 def main(argv=None, device="cuda") -> dict:
     """Write the motion masks of a scene; returns generate_motion_masks's
-    report (seconds per frame, mask shares)."""
+    report (seconds per frame, mask shares, F accepted per map)."""
     args = parse_args(argv)
-    dev = check_device(device)
-    return generate_motion_masks(args.dataset_path, zfill=args.zfill, device=dev)
+    return generate_motion_masks(args.dataset_path, zfill=args.zfill, device=device)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..data.imageio import image_size, pil_resize, read_image_rgb, resize_nearest, write_png
+from ..train.step import check_device
 
 FLT_EPSILON = float(np.finfo(np.float32).eps)
 DBL_EPSILON = float(np.finfo(np.float64).eps)
@@ -52,6 +53,8 @@ DBL_EPSILON = float(np.finfo(np.float64).eps)
 # cv2.getStructuringElement(MORPH_ELLIPSE, (3, 3)) and (5, 5) as (dy, dx) offsets
 ELLIPSE_3 = [(0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)]
 ELLIPSE_5 = [(-2, 0), (2, 0)] + [(dy, dx) for dy in (-1, 0, 1) for dx in range(-2, 3)]
+LMEDS_CHUNK = 32  # hypotheses scored at once: 32 × H·W float64 errors (133 MB at 540×960)
+LMEDS_SEED = 0  # the generator of generate_motion_masks's samples
 
 
 def get_uv_grid(H: int, W: int, align_corners: bool = False, device="cpu") -> torch.Tensor:
@@ -199,8 +202,8 @@ def _fm_error(x1: torch.Tensor, x2: torch.Tensor, F: torch.Tensor) -> torch.Tens
     return torch.maximum(e1, e2).float()
 
 
-def find_fundamental_lmeds(x1: torch.Tensor, x2: torch.Tensor, generator: torch.Generator,
-                           chunk: int = 32) -> Optional[torch.Tensor]:
+def find_fundamental_lmeds(x1: torch.Tensor, x2: torch.Tensor,
+                           generator: torch.Generator) -> Optional[torch.Tensor]:
     """cv2.findFundamentalMat(x1, x2, FM_LMEDS) with cv2's defaults on the
     tensors' device: x1, x2 [N, 2] float32 -> F [3, 3] float64 with F33 = 1,
     or None when no model is accepted. `generator` (a CPU generator) draws
@@ -222,9 +225,9 @@ def find_fundamental_lmeds(x1: torch.Tensor, x2: torch.Tensor, generator: torch.
     models, valid = _seven_point(p1[order], p2[order])
     models, valid = models.reshape(-1, 3, 3), valid.reshape(-1)
     medians = torch.full((models.shape[0],), math.inf, dtype=torch.float32, device=x1.device)
-    for s in range(0, models.shape[0], chunk):
-        err = _fm_error(x1, x2, models[s:s + chunk])
-        medians[s:s + chunk] = err.kthvalue(n // 2 + 1, dim=1).values
+    for s in range(0, models.shape[0], LMEDS_CHUNK):
+        err = _fm_error(x1, x2, models[s:s + LMEDS_CHUNK])
+        medians[s:s + LMEDS_CHUNK] = err.kthvalue(n // 2 + 1, dim=1).values
     medians = torch.where(valid & ~torch.isnan(medians), medians, math.inf)
     best = int(torch.argmin(medians))
     min_median = float(medians[best])
@@ -237,20 +240,26 @@ def find_fundamental_lmeds(x1: torch.Tensor, x2: torch.Tensor, generator: torch.
     return models[best]
 
 
-def epipolar_error_map(flow: torch.Tensor, H: int, W: int,
-                       generator: torch.Generator) -> torch.Tensor:
-    """One flow field [H, W, 2] -> the per-pixel Sampson error scaled by
-    ((H+W)/2)², [H, W] float32 (reference: generate_mask.py:195-224): flow
-    in uv units, F by LMedS, an all-zero map when there is none."""
+def epipolar_fit(flow: torch.Tensor, H: int, W: int, generator: torch.Generator):
+    """One flow field [H, W, 2] -> (the per-pixel Sampson error scaled by
+    ((H+W)/2)², [H, W] float32; whether LMedS accepted an F) (reference:
+    generate_mask.py:195-224): flow in uv units, an all-zero map when no F
+    was accepted."""
     x1 = get_uv_grid(H, W, device=flow.device).reshape(-1, 2)
     nflow = torch.stack([2.0 * flow[..., 0] / (W - 1), 2.0 * flow[..., 1] / (H - 1)],
                         -1).reshape(-1, 2)
     x2 = x1 + nflow
     F = find_fundamental_lmeds(x1, x2, generator)
     if F is None:
-        return torch.zeros(H, W, dtype=torch.float32, device=flow.device)
+        return torch.zeros(H, W, dtype=torch.float32, device=flow.device), False
     err = compute_sampson_error(x1, x2, F.float()).reshape(H, W)
-    return err * ((H + W) / 2) ** 2
+    return err * ((H + W) / 2) ** 2, True
+
+
+def epipolar_error_map(flow: torch.Tensor, H: int, W: int,
+                       generator: torch.Generator) -> torch.Tensor:
+    """The error map of `epipolar_fit` alone."""
+    return epipolar_fit(flow, H, W, generator)[0]
 
 
 def _morph(mask: torch.Tensor, offsets, erode: bool) -> torch.Tensor:
@@ -320,17 +329,19 @@ def run_semantic_segmentation(img_path: str, model=None) -> Optional[np.ndarray]
 
 
 def generate_motion_masks(datadir: str, zfill: int = 5, out_dir: str = "epipolar_error_png",
-                          device="cpu", seed: int = 0) -> dict:
+                          device="cuda") -> dict:
     """Read flow/%0Nd_{fwd,bwd}.npz, write <out_dir>/%0Nd.png for every frame
-    (reference: generate_mask.py:150-302). The LMedS samples of all frames
-    come from one CPU generator seeded with `seed`. Returns the seconds per
-    frame and the masks' mean share."""
+    (reference: generate_mask.py:150-302), on the card unless `device` is
+    the CPU; refuses without a card. The LMedS samples of all frames come
+    from one CPU generator seeded with LMEDS_SEED. Returns the seconds per
+    frame, the masks' mean shares and, per error map, whether LMedS
+    accepted an F."""
+    dev = check_device(device)
     images = sorted(glob.glob(os.path.join(datadir, "images", "*")))
     W, H = image_size(images[0])
     os.makedirs(os.path.join(datadir, out_dir), exist_ok=True)
-    gen = torch.Generator().manual_seed(seed)
-    dev = torch.device(device)
-    frame_s, shares = [], []
+    gen = torch.Generator().manual_seed(LMEDS_SEED)
+    frame_s, shares, f_found = [], [], []
     for idx in range(len(images)):
         t0 = time.perf_counter()
         err_maps = []
@@ -338,7 +349,9 @@ def generate_motion_masks(datadir: str, zfill: int = 5, out_dir: str = "epipolar
             if ok:
                 data = np.load(os.path.join(datadir, "flow", f"{idx:0{zfill}d}_{kind}.npz"))
                 flow = torch.from_numpy(np.asarray(data["flow"], np.float32)).to(dev)
-                err_maps.append(epipolar_error_map(flow, H, W, gen))
+                err, found = epipolar_fit(flow, H, W, gen)
+                err_maps.append(err)
+                f_found.append(found)
         semantic = run_semantic_segmentation(images[idx])
         if semantic is None and idx == 0:
             print("motion masks: no Mask-RCNN model (no weights in the repository); the "
@@ -350,4 +363,4 @@ def generate_motion_masks(datadir: str, zfill: int = 5, out_dir: str = "epipolar
                   (mask * 255).astype(np.uint8))
         frame_s.append(time.perf_counter() - t0)
         shares.append(float(mask.mean()))
-    return {"frame_s": frame_s, "mask_share": shares}
+    return {"frame_s": frame_s, "mask_share": shares, "f_found": f_found}

@@ -25,6 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..train.step import check_device
+
 
 class ResidualBlock(nn.Module):
     """(reference: extractor.py:8-59)."""
@@ -234,9 +236,19 @@ class RAFT(nn.Module):
         return convex_upsample((coords1 - coords0).permute(0, 3, 1, 2), mask)
 
 
-def load_raft(path: str, device="cpu") -> RAFT:
+def load_raft(path: str, device="cuda") -> RAFT:
     """An official RAFT checkpoint (e.g. raft-things.pth; `module.` prefixes
-    of DataParallel stripped) in a RAFT module on `device`, strict."""
+    of DataParallel stripped) in a RAFT module on `device` (the card unless
+    the caller passes the CPU; refuses without a card), strict.
+
+    Known limitation, shared with the JAX package: `lookup_corr` orders the
+    81 offsets of a correlation level with the x offset minor, where the
+    reference's corr.py moves x with the major index. With the official
+    weights `update_block.encoder.convc1` then reads its 324 channels
+    permuted and the flow is wrong without an error. Both packages keep
+    this order until the real weights are in the repository to check the
+    swap against (ROADMAP.md, queue 3)."""
+    device = check_device(device)
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and "state_dict" in raw:
         raw = raw["state_dict"]

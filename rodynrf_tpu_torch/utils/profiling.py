@@ -7,7 +7,8 @@ The reference has no profiling support (SURVEY.md §5.1, tqdm only). Here:
   * `annotate(name)`: a named region in that trace (torch.profiler.
     record_function; an NVTX range when a CUDA tool records one);
   * `StepTimer`: rolling wall-clock statistics of the hot loop; on the card
-    it synchronises at both ends of a timed block, so a step's time is the
+    (its default; it refuses without one unless given the CPU) it
+    synchronises at both ends of a timed block, so a step's time is the
     device's, not its enqueue's.
 """
 
@@ -19,6 +20,8 @@ import time
 from typing import Optional
 
 import torch
+
+from ..train.step import check_device
 
 
 @contextlib.contextmanager
@@ -40,14 +43,14 @@ def annotate(name: str):
 
 
 class StepTimer:
-    """Rolling wall-clock stats (mean/p50/p95) for train/render steps. With
-    `device` on the card, each timed block starts and ends with a
-    synchronisation."""
+    """Rolling wall-clock stats (mean/p50/p95) for train/render steps. On
+    the card (the default) each timed block starts and ends with a
+    synchronisation; `device="cpu"` times host work."""
 
-    def __init__(self, window: int = 200, device="cpu"):
+    def __init__(self, window: int = 200, device="cuda"):
         self.window = window
         self.samples = []
-        self.device = torch.device(device)
+        self.device = check_device(device)
         self._t0: Optional[float] = None
 
     def _sync(self):

@@ -7,10 +7,13 @@ readers and profiling hooks.
   mask mains with device="cpu", from random checkpoints in the official
   layouts (RAFT at a 64 long side, 2 refinements; the narrow DPT), write
   every file the loader reads; load_scene reads them and a step of the
-  recipe on them is finite; the card-vs-CPU comparison of 11e runs (CPU
-  against CPU here).
+  recipe on them is finite; LMedS accepts an F on the flows; the
+  card-vs-CPU comparisons of 11e run (CPU against CPU here), the
+  scene-size one on a two-view flow whose moving patch the mask covers.
 - Each command refuses without a card unless device="cpu" is passed, and
-  `python -m rodynrf_tpu_torch.preprocess` says so.
+  `python -m rodynrf_tpu_torch.preprocess` says so; so do the library
+  entry points under them (`generate_motion_masks`, `load_raft`,
+  `load_dpt`) and `StepTimer`.
 - rodynrf_tpu_torch/data/colmap.py reads tests/test_extras.py's synthetic
   sparse model as the JAX package's colmap.py does, and converts it to the
   same transforms and poses_bounds.
@@ -62,10 +65,14 @@ def test_chip_smoke_preprocess_phase_rehearses_on_the_cpu(monkeypatch):
     assert info["flow"]["pairs"] == 3 and info["flow"]["size"] == [64, 64]
     assert info["depth"]["frames"] == 4 and info["depth"]["size"] == [384, 384]
     assert len(info["masks"]["frame_s"]) == 4
+    assert info["masks"]["maps"] == 6 and info["masks"]["maps_with_f"] >= 1
     assert all(np.isfinite(info["train"]["losses"]))
     cmp = info["card_vs_cpu"]
     assert cmp["raft_max_epe_px"] == 0.0 and cmp["dpt_max_rel"] == 0.0
     assert cmp["lmeds_mask_agreement"] == 1.0
+    full = info["lmeds_full_size"]
+    assert full["size"] == [64, 64] and full["f_found"] and full["mask_agreement"] == 1.0
+    assert full["patch_hit"] >= cs.PATCH_HIT_MIN and full["static_hit"] <= cs.STATIC_HIT_MAX
     json.dumps(info)  # the `preprocess` line
 
 
@@ -83,6 +90,21 @@ def test_commands_refuse_without_a_card(main, tmp_path):
                              cwd=REPO, capture_output=True, text=True, timeout=300,
                              env=dict(os.environ, PYTHONPATH=REPO))
         assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("entry", ["generate_motion_masks", "load_raft", "load_dpt",
+                                   "StepTimer"])
+def test_library_entry_points_refuse_without_a_card(entry, tmp_path):
+    from rodynrf_tpu_torch.preprocess import dpt, motion_masks, raft
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    call = {"generate_motion_masks": lambda: motion_masks.generate_motion_masks(str(tmp_path)),
+            "load_raft": lambda: raft.load_raft(str(tmp_path / "none.pth")),
+            "load_dpt": lambda: dpt.load_dpt(str(tmp_path / "none.pt")),
+            "StepTimer": lambda: profiling.StepTimer()}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
 
 
 def test_colmap_matches_jax(tmp_path):
@@ -108,7 +130,7 @@ def test_profiling_on_the_cpu(tmp_path):
             (x @ x).sum()
     assert "matmul_region" in {e.key for e in prof.key_averages()}
     assert "matmul_region" in (tmp_path / "trace.json").read_text()
-    timer = profiling.StepTimer(window=3)
+    timer = profiling.StepTimer(window=3, device="cpu")
     for _ in range(5):
         with timer:
             (x @ x).sum()

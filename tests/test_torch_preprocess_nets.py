@@ -82,7 +82,7 @@ def test_raft_checkpoint_loads_in_both_packages(raft_pair, tmp_path):
     model.load_state_dict(raft_state_from_jax(params), strict=True)
     path = str(tmp_path / "raft.pth")
     torch.save({"module." + k: v for k, v in model.state_dict().items()}, path)
-    port = _port_flow(praft.load_raft(path), img1, img2)
+    port = _port_flow(praft.load_raft(path, "cpu"), img1, img2)
     jax_params = jraft.load_raft_torch_checkpoint(path)
     ref = np.asarray(jax.jit(lambda p, a, b: jraft.raft_forward(p, a, b, iters=2))(
         jax_params, img1, img2))
@@ -119,7 +119,7 @@ def test_dpt_matches_jax(narrow_dpt, hw, tmp_path):
         path = str(tmp_path / "dpt.pt")
         torch.save(sd, path)
         np.testing.assert_array_equal(
-            _port_depth(pdpt.load_dpt(path, cfg=model.cfg), img), got)
+            _port_depth(pdpt.load_dpt(path, "cpu", model.cfg), img), got)
         jax_params = _load_dpt_subset(path, jcfg)
         again = np.asarray(jax.jit(lambda p, x: jdpt.dpt_forward(p, x, jcfg))(jax_params, img))
         np.testing.assert_array_equal(again, ref)
