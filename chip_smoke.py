@@ -116,6 +116,26 @@ result):
          both: F accepted on each, the masks agree on >= 99% of pixels and
          cover the patch (>= 90% of it, <= 10% of the static pixels); one
          `preprocess` JSON line;
+  12. (inside phase 7, after its --render_only) mesh export and LPIPS:
+     12a. `cli.main([... "--export_mesh", "1", "--ckpt", <phase 7's .npz>])`
+         at the full 331×368×220 grid: seconds of dense_alpha,
+         marching_tetrahedra and write_ply, V, F, PLY bytes, peak GiB, the
+         alpha volume's max and share above the 0.005 level (random weights
+         may give no surface);
+     12b. the reference's trained basin field (golden/out_basin/.../
+         golden_basin.th) exported at its own grid and grown to 331×368×220
+         (`upsample_dynamic_field`): the same readings, F > 0 for both; card
+         against CPU: dense_alpha at the basin grid within 1e-5,
+         marching_tetrahedra bit for bit on the card's basin volume and on
+         a 96³ crop of the grown one;
+     12c. LPIPS (alex, vgg) with seeded random weights in the `lpips`
+         layout ($LPIPS_WEIGHTS_DIR set for this phase only): ms per
+         270×480 frame over the 12 rendered frames against their ground
+         truth (median, first excluded), a frame to itself 0, card against
+         CPU on a 96×128 crop within 1e-4 relative; then a --render_only
+         evaluation (committed mask, --compact_eval 1) whose mean.txt must
+         carry finite lpips_alex and lpips_vgg. Neither kernel runs; one
+         `mesh_lpips` JSON line;
   6. (printed last) a `main_path` JSON line per path, one JSON line of
      kernels, the nvidia-smi line, and the result line.
 
@@ -186,6 +206,14 @@ NARROW_DPT = dict(dim=64, heads=4, blocks=4, hooks=(0, 1, 2, 3), reassemble=(16,
                   features=32)  # tests/test_preprocess.py:93
 RAFT_EPE_LIMIT, DPT_REL_LIMIT, LMEDS_AGREE_MIN = 1e-3, 1e-4, 0.99  # 11e, card vs CPU
 PATCH_HIT_MIN, STATIC_HIT_MAX = 0.9, 0.1  # 11e at full size: mask share on / off the patch
+# phase 12: the reference's trained basin field (2,000 iterations of
+# golden/basin.txt), the crop held card vs CPU, and the card-vs-CPU limits
+BASIN_TH = str(Path(__file__).resolve().parent / "golden" / "out_basin" / "ref_log"
+               / "golden_basin" / "golden_basin.th")
+MESH_CROP = 96
+MESH_PROFILE_SLAB = 16  # x-planes of the grown field under the profiler: 16·368·220 = 20 chunks
+MESH_ALPHA_ATOL = 1e-5  # alpha in [0, 1]; f32 field products in another order
+LPIPS_REL_LIMIT, LPIPS_CPU_HW, LPIPS_SELF_MAX = 1e-4, (96, 128), 1e-9
 
 
 def log(*a):
@@ -1068,6 +1096,7 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
         if rrep["psnrs"] != rep["psnrs"]:
             raise AssertionError(f"render_only PSNRs {rrep['psnrs']} != the final evaluation's "
                                  f"{rep['psnrs']}")
+        drive_mesh_lpips(argv, rep["ckpt"], root / "log", grid, smi, device)
         chunk_profile = (profile_render_chunk(rep["ckpt"], CLI_SCENE["H"] // 2,
                                               CLI_SCENE["W"] // 2, n_samples)
                          if device == "cuda" else {})
@@ -1107,6 +1136,193 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
     log(json.dumps({"cli": cli}))
     log(json.dumps({"render_compact": render_compact}))
     return {"path": "cli", "launches": launches, "launches_per_step": per_step}
+
+
+def write_lpips_dump(path: Path, net: str, seed: int) -> None:
+    """Seeded random LPIPS weights in the `lpips` package's state-dict
+    layout: convolutions U(±1/√fan_in), the lin heads U(0, 0.1) (trained
+    heads are non-negative), the scaling layer's constants."""
+    from rodynrf_tpu_torch.eval.lpips import LPIPS
+
+    g = torch.Generator().manual_seed(seed)
+    sd = LPIPS(net).state_dict()
+    for k, v in sd.items():
+        if k.startswith("lin"):
+            v.uniform_(0.0, 0.1, generator=g)
+        elif k.startswith("net."):
+            w = sd[k.replace(".bias", ".weight")]
+            bound = 1.0 / math.sqrt(w[0].numel())
+            v.uniform_(-bound, bound, generator=g)
+    torch.save(sd, path)
+
+
+def profile_call(label: str, fn, top: int = 6) -> dict:
+    """One call of fn under torch.profiler (after a warm call): its wall
+    time, device-busy time, device launches, the idle share, and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0) or 0.0
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    log(f"[{label}] under the profiler: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
+        f"{launches} device launches")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
+        log(f"[{label}]   {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_launches": launches,
+            "idle_share": 1 - busy_ms / wall_ms}
+
+
+def drive_mesh_lpips(argv, ckpt: str, logdir: Path, grid, smi: str, device: str = "cuda"):
+    """Phase 12 on phase 7's checkpoint and frames: 12a the CLI's mesh
+    export at full width; 12b the reference's trained basin field exported
+    at its own grid and grown to `grid`, card against CPU; 12c LPIPS of the
+    rendered frames with seeded random weights, then a --render_only
+    evaluation whose mean.txt must carry finite LPIPS columns. Neither
+    table-gradient kernel runs. Prints and returns the `mesh_lpips`
+    record."""
+    import os
+    import tempfile
+
+    from rodynrf_tpu_torch.cli import _load_reference_th_pair
+    from rodynrf_tpu_torch.cli import main as cli_main
+    from rodynrf_tpu_torch.data.imageio import read_png
+    from rodynrf_tpu_torch.data.video_dataset import load_scene
+    from rodynrf_tpu_torch.eval import mesh
+    from rodynrf_tpu_torch.eval.metrics import rgb_lpips
+    from rodynrf_tpu_torch.fields.dynamic import upsample_dynamic_field
+    from rodynrf_tpu_torch.train import config_parser
+    from rodynrf_tpu_torch.train.checkpoints import save_checkpoint
+    from rodynrf_tpu_torch.train.convert import params_from_numpy, params_to_numpy
+
+    t_phase = time.time()
+    launches_before = counters()
+    record = {"card": smi}
+
+    def with_peak(fn, *a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return {**fn(*a, **k), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    # 12a. --export_mesh 1 of phase 7's checkpoint (random weights)
+    record["full_width"] = with_peak(
+        lambda: cli_main(argv + ["--export_mesh", "1", "--ckpt", ckpt], device)["mesh"])
+    log(f"[mesh] 12a full width {record['full_width']} ({smi})")
+
+    # 12b. the reference's trained basin field, at its grid and grown to `grid`
+    params, st_cfg, dy_cfg, aabb, _, focal, _ = _load_reference_th_pair(BASIN_TH)
+    rest = {"pose": np.zeros((1, 9), np.float32), "fov": np.zeros((1, 1), np.float32)}
+    basin = str(logdir / "basin.npz")
+    save_checkpoint(basin, {**params, **rest}, st_cfg, dy_cfg, aabb, extra={"focal": focal})
+    with torch.no_grad():
+        grown_dy = params_to_numpy(
+            upsample_dynamic_field(params_from_numpy(params["dynamic"], "cpu"), grid))
+    grown_cfg = dy_cfg.with_grid(grid)
+    grown = str(logdir / "basin_grown.npz")
+    save_checkpoint(grown, {**params, "dynamic": grown_dy, **rest}, st_cfg, grown_cfg, aabb,
+                    extra={"focal": focal})
+    for name, path in (("basin", basin), ("basin_grown", grown)):
+        record[name] = with_peak(mesh.export_mesh_from_ckpt, path, path[:-4] + ".ply",
+                                 device=device)
+        log(f"[mesh] 12b {name} {record[name]} ({smi})")
+        if record[name]["faces"] == 0:
+            raise AssertionError(f"the trained {name} field gave an empty surface")
+
+    # card against CPU: dense_alpha at the basin grid; marching_tetrahedra on
+    # the card's basin volume and on a crop of the grown one
+    a_card = mesh.dense_alpha(params_from_numpy(params["dynamic"], device), dy_cfg, aabb)
+    a_cpu = mesh.dense_alpha(params_from_numpy(params["dynamic"], "cpu"), dy_cfg, aabb)
+    alpha_err = float((a_card.cpu() - a_cpu).abs().max())
+    grown_t = params_from_numpy(grown_dy, device)
+    a_grown = mesh.dense_alpha(grown_t, grown_cfg, aabb)
+    if device == "cuda":  # a slab of 20 chunks of 65,536 points
+        slab = (MESH_PROFILE_SLAB, *grid[1:])
+        record["dense_alpha_profile"] = profile_call(
+            "mesh", lambda: mesh.dense_alpha(grown_t, grown_cfg, aabb, grid_size=slab))
+        record["dense_alpha_profile"]["points"] = int(np.prod(slab))
+    # the crop around the densest voxel, where the surface is
+    peak_at = np.unravel_index(int(a_grown.argmax()), tuple(grid))
+    c = [min(max(0, int(p) - MESH_CROP // 2), max(0, g - MESH_CROP)) for p, g in zip(peak_at, grid)]
+    crop = a_grown[c[0]:c[0] + MESH_CROP, c[1]:c[1] + MESH_CROP, c[2]:c[2] + MESH_CROP].clone()
+    del a_grown
+    equal, sizes = {}, {}
+    for name, vol in (("basin", a_card), ("grown_crop", crop)):
+        v_card, f_card = mesh.marching_tetrahedra(vol, mesh.LEVEL)
+        v_cpu, f_cpu = mesh.marching_tetrahedra(vol.cpu(), mesh.LEVEL)
+        equal[name] = bool(torch.equal(v_card.cpu(), v_cpu) and torch.equal(f_card.cpu(), f_cpu))
+        sizes[name] = {"shape": list(vol.shape), "vertices": len(v_cpu), "faces": len(f_cpu)}
+    sizes["grown_crop"]["origin"] = c
+    record["card_vs_cpu"] = {"dense_alpha_max_abs": alpha_err, "limit": MESH_ALPHA_ATOL,
+                             "marching_equal": equal, "marching_sizes": sizes}
+    log(f"[mesh] 12b card vs CPU: {record['card_vs_cpu']}")
+    if alpha_err > MESH_ALPHA_ATOL or not all(equal.values()):
+        raise AssertionError(f"mesh card vs CPU: {record['card_vs_cpu']}")
+    if sizes["grown_crop"]["faces"] == 0:
+        raise AssertionError("the grown basin's crop holds no surface")
+
+    # 12c. LPIPS with seeded random weights, for this phase only
+    wdir = Path(tempfile.mkdtemp(prefix="lpips_", dir=logdir))
+    for seed, net in enumerate(("alex", "vgg")):
+        write_lpips_dump(wdir / f"lpips_{net}.pth", net, seed)
+    scene = load_scene(config_parser(argv))
+    frames = [read_png(str(logdir / "cli" / "imgs_test_all" / f"{i:03d}.png")).astype(np.float32)
+              / 255.0 for i in range(len(scene.rgbs_stack))]
+    saved = os.environ.get("LPIPS_WEIGHTS_DIR")
+    os.environ["LPIPS_WEIGHTS_DIR"] = str(wdir)
+    try:
+        lp = {}
+        for net in ("alex", "vgg"):
+            ms, vals = [], []
+            for gt, im in zip(scene.rgbs_stack, frames):
+                t0 = time.perf_counter()
+                vals.append(rgb_lpips(gt, im, net, device=device))  # float(): synchronised
+                ms.append(1e3 * (time.perf_counter() - t0))
+            gt, im = scene.rgbs_stack[0], frames[0]
+            h, w = min(LPIPS_CPU_HW[0], gt.shape[0]), min(LPIPS_CPU_HW[1], gt.shape[1])
+            card, cpu = (rgb_lpips(gt[:h, :w], im[:h, :w], net, device=d) for d in (device, "cpu"))
+            prof = (profile_call("lpips", lambda: rgb_lpips(gt, im, net, device=device))
+                    if device == "cuda" else {})
+            lp[net] = {"ms_per_frame_median": float(np.median(ms[1:])), "first_ms": ms[0],
+                       "values": vals, "self_distance": rgb_lpips(gt, gt, net, device=device),
+                       "crop_card": card, "crop_cpu": cpu, "profile": prof,
+                       "card_vs_cpu_rel": abs(card - cpu) / abs(cpu), "cpu_crop": [h, w]}
+            if (not all(math.isfinite(v) for v in vals)
+                    or abs(lp[net]["self_distance"]) > LPIPS_SELF_MAX):
+                raise AssertionError(f"LPIPS {net}: {lp[net]}")
+            if lp[net]["card_vs_cpu_rel"] > LPIPS_REL_LIMIT:
+                raise AssertionError(f"LPIPS {net} card vs CPU: {lp[net]['card_vs_cpu_rel']}")
+        t0 = time.time()
+        cli_main(argv + ["--render_only", "1", "--ckpt", ckpt, "--alpha_mask", MASK_NPZ,
+                         "--compact_eval", "1"], device)
+        mean = np.loadtxt(logdir / "cli" / "imgs_test_all" / "mean.txt")
+        lp["render_only_s"] = time.time() - t0
+    finally:
+        if saved is None:
+            del os.environ["LPIPS_WEIGHTS_DIR"]
+        else:
+            os.environ["LPIPS_WEIGHTS_DIR"] = saved
+    lp["mean_txt"] = {"psnr": mean[0], "ssim": mean[1], "lpips_alex": mean[2],
+                      "lpips_vgg": mean[3]}
+    lp["limit_rel"] = LPIPS_REL_LIMIT
+    if len(mean) != 4 or not np.isfinite(mean).all():
+        raise AssertionError(f"mean.txt {mean}")
+    record["lpips"] = lp
+    record["phase_s"] = time.time() - t_phase
+    log(f"[lpips] alex {lp['alex']['ms_per_frame_median']:.2f} ms/frame, vgg "
+        f"{lp['vgg']['ms_per_frame_median']:.2f} ms/frame at {frames[0].shape[0]}x"
+        f"{frames[0].shape[1]}; mean.txt {lp['mean_txt']} ({smi})")
+    if counters() != launches_before:
+        raise AssertionError(f"phase 12 launched a table-gradient kernel: {counters()}")
+    log(json.dumps({"mesh_lpips": record}))
+    return record
 
 
 def write_raft_checkpoint(path: Path, seed: int = 7) -> Path:
@@ -1492,10 +1708,8 @@ def drive_compact_render(argv, rep, smi: str, device: str):
 
 def profile_render_chunk(ckpt: str, H: int, W: int, n_samples: int, top: int = 12):
     """One 8192-ray chunk of the CLI checkpoint's render under
-    torch.profiler (after a warm call): its wall time, device-busy time and
-    launches, and the kernels that take the most device time."""
+    torch.profiler (`profile_call`)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from rodynrf_tpu_torch.core.se3 import pose_to_mtx
     from rodynrf_tpu_torch.render.renderer import make_chunk_renderer, rays_for_view
@@ -1510,22 +1724,7 @@ def profile_render_chunk(ckpt: str, H: int, W: int, n_samples: int, top: int = 1
     rays = rays_for_view(pose, extra["focal"], H, W, "ndc", device="cuda")[:8192]
     ts = torch.zeros(rays.shape[0], device="cuda")
     packs = chunk.pack(p)
-    chunk(p, packs, aabb_t, rays, ts)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        chunk(p, packs, aabb_t, rays, ts)
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0) or 0.0
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    log(f"[render] one 8192-ray chunk under the profiler: wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms, {sum(e.count for e in kernels)} device launches")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
-        log(f"[render]   {dev_us(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:110]}")
-    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_launches": sum(e.count for e in kernels)}
+    return profile_call("render", lambda: chunk(p, packs, aabb_t, rays, ts), top)
 
 
 def drive_memory_paths(scene, smi: str, device: str = "cuda"):

@@ -11,8 +11,10 @@ work as in train.py: `update_AlphaMask_list` builds one during training
 (and with --compact_train 1 the step compacts against it), checkpoints
 carry it, and the evaluations render with it (--compact_eval 1, the
 default: the flat-bucket compact renderer); --alpha_mask <npz> renders a
-checkpoint with a standalone mask. Mesh export (--export_mesh 1) is a later
-slice and is refused.
+checkpoint with a standalone mask. --export_mesh 1 writes the dynamic
+field's surface from --ckpt X.npz as X.ply and trains nothing (it renders
+too if --render_only asks). mean.txt carries LPIPS where weights are given
+($LPIPS_WEIGHTS_DIR; eval/metrics.rgb_lpips).
 Each function returns a small report (timings, PSNRs, paths) besides
 writing what train.py writes.
 """
@@ -28,6 +30,7 @@ import torch
 from .core.se3 import pose_to_mtx
 from .data.video_dataset import load_scene
 from .eval.evaluation import evaluate, export_poses_bounds
+from .eval.mesh import export_mesh_from_ckpt
 from .eval.paths import evaluation_path, generate_path
 from .fields.alpha_mask import load_alpha_npz
 from .fields.config import FieldConfig, cal_n_samples
@@ -36,7 +39,7 @@ from .train.checkpoints import export_th, import_th, load_checkpoint, save_check
 from .train.config import config_parser
 from .train.convert import params_from_numpy
 from .train.step import check_device
-from .train.trainer import MESH_LPIPS, Trainer, not_ported
+from .train.trainer import Trainer
 
 
 class _DummyWriter:
@@ -393,15 +396,23 @@ def render_test(args, logfolder, device="cuda"):
 
 
 def main(argv=None, device="cuda"):
-    """Parse `argv` (a list of arguments; None reads sys.argv) and dispatch:
-    --render_only with --render_test or --render_path renders a checkpoint,
-    anything else trains. Returns the dispatched function's report."""
+    """Parse `argv` (a list of arguments; None reads sys.argv) and dispatch
+    as train.py does: --export_mesh 1 writes `<ckpt stem>.ply` from --ckpt;
+    --render_only with --render_test or --render_path renders a checkpoint;
+    anything else, unless a mesh was exported, trains. Returns the
+    dispatched functions' report (the export's under "mesh")."""
     args = config_parser(argv)
     np.random.seed(args.seed)
     print(args)
     check_device(device)
+    report = {}
     if args.export_mesh:
-        not_ported("--export_mesh 1 (eval/mesh.py)", MESH_LPIPS)
+        if not args.ckpt:
+            raise ValueError("--export_mesh 1 exports the checkpoint that --ckpt names")
+        report["mesh"] = export_mesh_from_ckpt(
+            args.ckpt, args.ckpt.rsplit(".", 1)[0] + ".ply", device=device)
     if args.render_only and (args.render_test or args.render_path):
-        return render_test(args, os.path.join(args.basedir, args.expname), device)
-    return reconstruction(args, device)
+        report.update(render_test(args, os.path.join(args.basedir, args.expname), device))
+    elif not args.export_mesh:
+        report = reconstruction(args, device)
+    return report

@@ -80,3 +80,13 @@ def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
     rays_d = directions @ c2w[:3, :3].T
     rays_o = c2w[:3, 3].expand(rays_d.shape)
     return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+
+
+def make_rays(i, j, focal_xy, center, c2w_per_ray, H, W, ray_type: str):
+    """Pixel ids + per-ray pose [B, 3, 4] -> packed [B, 6] (o, d) rays, in
+    NDC when `ray_type` is 'ndc' (reference: train.py:1066-1077)."""
+    dirs = get_ray_directions_lean(i, j, focal_xy, center)
+    rays_o, rays_d = get_rays_lean(dirs, c2w_per_ray)
+    if ray_type == "ndc":
+        rays_o, rays_d = ndc_rays_blender(H, W, focal_xy, 1.0, rays_o, rays_d)
+    return torch.cat([rays_o, rays_d], dim=-1)

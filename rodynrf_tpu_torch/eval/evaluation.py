@@ -66,7 +66,8 @@ def evaluate(
 ):
     """Returns (PSNRs, near_fars, depth_maps). `frame_seconds`, if given,
     gets each frame's render time (render_image returns host arrays, so the
-    device's work is inside it)."""
+    device's work is inside it). LPIPS, where weights are given, runs on the
+    device of `aabb` (a tensor, as the renderer takes it)."""
     W, H = scene.img_wh
     T = poses_mtx.shape[0]
     interval = 1 if n_vis < 0 else max(T // n_vis, 1)
@@ -113,8 +114,8 @@ def evaluate(
             PSNRs.append(psnr_fn(maps["rgb"], gt))
             if compute_extra_metrics:
                 ssims.append(rgb_ssim(maps["rgb"], gt, 1))
-                la = rgb_lpips(gt, maps["rgb"], "alex")
-                lv = rgb_lpips(gt, maps["rgb"], "vgg")
+                la = rgb_lpips(gt, maps["rgb"], "alex", device=aabb.device)
+                lv = rgb_lpips(gt, maps["rgb"], "vgg", device=aabb.device)
                 if la is not None:
                     l_alexes.append(la)
                 if lv is not None:

@@ -2,14 +2,19 @@
 visualization (port of rodynrf_tpu/eval/metrics.py; reference
 utils.py:98-151 rgb_ssim, 79-84 rgb_lpips, 13-55 visualize_depth).
 
-numpy and scipy only. The LPIPS network is a later slice of the port
-(ROADMAP.md queue 1, item 3); until then `rgb_lpips` returns None, as the JAX
-package's does without weights.
+PSNR, SSIM and the colormaps are numpy and scipy; LPIPS runs the port's
+network (eval/lpips.py) on the caller's device.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
+
+from ..train.step import check_device
+from .lpips import load_lpips
 
 
 def psnr(img0: np.ndarray, img1: np.ndarray) -> float:
@@ -69,19 +74,46 @@ def rgb_ssim(
     return ssim_map if return_map else float(np.mean(ssim_map))
 
 
+_LPIPS_MODELS = {}  # (weights path, net, device) -> eval.lpips.LPIPS
 _LPIPS_MISS_LOGGED = set()
 
 
-def rgb_lpips(np_gt: np.ndarray, np_im: np.ndarray, net_name: str = "alex"):
-    """LPIPS (reference: utils.py:68-84). The port has no LPIPS network yet
-    (ROADMAP.md queue 1, item 3), so there are no weights: returns None and prints
-    a one-line notice once per network, as the JAX package does without
-    weights."""
-    if net_name not in _LPIPS_MISS_LOGGED:
-        print(f"[lpips] no weights for '{net_name}' (the LPIPS network is not ported "
-              "yet); scoring without lpips")
-        _LPIPS_MISS_LOGGED.add(net_name)
-    return None
+def _lpips_weights(net_name: str):
+    """The path of the `lpips` state-dict dump for `net_name`:
+    $LPIPS_WEIGHTS_{NET}, else $LPIPS_WEIGHTS_DIR/lpips_{net}.pth; None when
+    neither names a file."""
+    path = os.environ.get(f"LPIPS_WEIGHTS_{net_name.upper()}")
+    if not path:
+        d = os.environ.get("LPIPS_WEIGHTS_DIR")
+        path = os.path.join(d, f"lpips_{net_name}.pth") if d else None
+    return path if path and os.path.exists(path) else None
+
+
+def rgb_lpips(np_gt: np.ndarray, np_im: np.ndarray, net_name: str = "alex", device="cuda"):
+    """LPIPS of two [H, W, 3] images in [0, 1] (reference: utils.py:68-84),
+    scored on `device` (the card unless the caller asks for the CPU) by the
+    port's network with the weights `_lpips_weights` finds. Without weights
+    it returns None, touching no device, and prints a one-line notice once
+    per network; a miss is not cached (the weights may appear later in the
+    process)."""
+    path = _lpips_weights(net_name)
+    if path is None:
+        if net_name not in _LPIPS_MISS_LOGGED:
+            print(f"[lpips] no weights for '{net_name}' (set $LPIPS_WEIGHTS_DIR); "
+                  "scoring without lpips")
+            _LPIPS_MISS_LOGGED.add(net_name)
+        return None
+    dev = check_device(device)
+    key = (path, net_name, dev)
+    if key not in _LPIPS_MODELS:
+        _LPIPS_MODELS[key] = load_lpips(path, net_name, dev)
+
+    def nchw(x):
+        x = np.ascontiguousarray(np.asarray(x, np.float32).transpose(2, 0, 1))
+        return torch.from_numpy(x)[None].to(dev)
+
+    with torch.no_grad():
+        return float(_LPIPS_MODELS[key](nchw(np_gt), nchw(np_im))[0])
 
 
 # cv2's COLORMAP_JET (OpenCV 5.0.0, `cv2.applyColorMap` of the levels

@@ -34,6 +34,12 @@ def normalize_coord(xyz, aabb):
     return (xyz - aabb[0]) * inv_size - 1.0
 
 
+def unnormalize_coord(xyz_n, aabb):
+    """[-1, 1]^3 -> aabb box (reference: tensorBase.py:430-433)."""
+    inv_size = 2.0 / (aabb[1] - aabb[0])
+    return (xyz_n + 1.0) / inv_size + aabb[0]
+
+
 def init_dynamic_field(gen: torch.Generator, cfg: FieldConfig):
     density_plane, density_line = init_vm(gen, cfg.density_n_comp, cfg.grid_size)
     blending_plane, blending_line = init_vm(gen, cfg.density_n_comp, cfg.grid_size)
@@ -89,6 +95,22 @@ def density_feature(params, cfg: FieldConfig, xyz_n, t, xyz_warped_n) -> torch.T
     feats = sample_vm(params["density_plane"], params["density_line"], xyz_warped_n,
                       strides=MULTISCALE_STRIDES, gather_dtype=cfg.gather_dtype)
     return mlp_apply(params["density_head"], _head_inputs(feats, xyz_n, t))[..., 0]
+
+
+def blending_feature(params, cfg: FieldConfig, xyz_n, t, xyz_warped_n) -> torch.Tensor:
+    """Multiscale blending through the unfused sampler + the blending head
+    (reference: tensoRF.py:543-629). Returns the raw (pre-sigmoid) [N]."""
+    feats = sample_vm(params["blending_plane"], params["blending_line"], xyz_warped_n,
+                      strides=MULTISCALE_STRIDES, gather_dtype=cfg.gather_dtype)
+    return mlp_apply(params["blending_head"], _head_inputs(feats, xyz_n, t))[..., 0]
+
+
+def app_feature(params, cfg: FieldConfig, xyz_warped_n) -> torch.Tensor:
+    """Multiscale appearance through the unfused sampler and the basis matrix
+    (reference: tensoRF.py:734-811). Returns [N, app_dim]."""
+    feats = sample_vm(params["app_plane"], params["app_line"], xyz_warped_n,
+                      strides=MULTISCALE_STRIDES, gather_dtype=cfg.gather_dtype)
+    return feats @ params["basis_mat"]
 
 
 def pack_tables(params, cfg: FieldConfig, eval_mode: bool = False):
@@ -179,6 +201,13 @@ def scene_flow_point(params, pts_map: torch.Tensor, t: torch.Tensor, aabb):
 def density_l1(params, cfg: FieldConfig) -> torch.Tensor:
     return vm_outer_l1(
         params["density_plane"], params["density_line"], lambda f: feature2density(f, cfg)
+    )
+
+
+def blending_l1(params, cfg: FieldConfig) -> torch.Tensor:
+    """(reference: tensoRF.py:398-416)."""
+    return vm_outer_l1(
+        params["blending_plane"], params["blending_line"], lambda f: feature2density(f, cfg)
     )
 
 

@@ -19,9 +19,10 @@ from ..ops.grid_sample import (
     VEC_MODE,
     resize_bilinear_align_corners,
     resize_line_align_corners,
+    sample_vm,
     sample_vm_sum,
 )
-from ..ops.regularizers import tv_loss_vm, vm_outer_l1
+from ..ops.regularizers import line_orthogonality, tv_loss_vm, vm_outer_l1
 from .config import FieldConfig
 from .mlps import init_shading, uniform
 
@@ -60,6 +61,14 @@ def density_feature(params, xyz_n: torch.Tensor, gather_dtype=None) -> torch.Ten
     tensoRF.py:118-154). xyz_n [N, 3] -> [N]."""
     return sample_vm_sum(params["density_plane"], params["density_line"], xyz_n,
                          gather_dtype=gather_dtype)
+
+
+def app_feature(params, xyz_n: torch.Tensor, gather_dtype=None) -> torch.Tensor:
+    """Appearance features through the unfused sampler and the basis matrix
+    (reference: tensoRF.py:156-196). xyz_n [N, 3] -> [N, app_dim]."""
+    feats = sample_vm(params["app_plane"], params["app_line"], xyz_n, strides=(1,),
+                      gather_dtype=gather_dtype)
+    return feats @ params["basis_mat"]
 
 
 def pack_tables(params, cfg: FieldConfig):
@@ -136,6 +145,11 @@ def tv_density(params) -> torch.Tensor:
 
 def tv_app(params) -> torch.Tensor:
     return tv_loss_vm(params["app_plane"], params["app_line"])
+
+
+def vector_comp_diffs(params) -> torch.Tensor:
+    """(reference: tensoRF.py:63-78)."""
+    return line_orthogonality(params["density_line"]) + line_orthogonality(params["app_line"])
 
 
 def upsample_vm(planes, lines, res_target):

@@ -17,3 +17,10 @@ def eff_distloss(w: torch.Tensor, m: torch.Tensor, interval) -> torch.Tensor:
     wm_cumsum = torch.cumsum(wm, dim=-1)
     loss_bi_terms = wm[:, 1:] * w_cumsum[:, :-1] - w[:, 1:] * wm_cumsum[:, :-1]
     return 2.0 * torch.sum(loss_bi_terms) + loss_uni
+
+
+def distloss_naive(w: torch.Tensor, m: torch.Tensor, interval) -> torch.Tensor:
+    """The O(S²) definition Σ_r Σ_ij w_i w_j |m_i − m_j| + (1/3) Σ interval
+    w², which `eff_distloss` equals; for tests."""
+    pair = w[:, :, None] * w[:, None, :] * torch.abs(m[:, :, None] - m[:, None, :])
+    return torch.sum(pair) + (1.0 / 3.0) * torch.sum(interval * w * w)

@@ -96,6 +96,25 @@ def sample_vm_sum(planes, lines, xyz: torch.Tensor, gather_dtype=None) -> torch.
     return total
 
 
+def vm_axis_sum(plane, line, xy, z, strides=(1,)) -> torch.Tensor:
+    """Σ_strides Σ_c bilerp(plane) ⊙ lerp(line) for one VM axis -> [N]."""
+    total = 0.0
+    for s in strides:
+        total = total + torch.sum(sample_plane(plane, xy, stride=s) * sample_line(line, z, stride=s),
+                                  dim=-1)
+    return total
+
+
+def sample_vm_sum_fused(planes, lines, xyz: torch.Tensor, strides=(1,)) -> torch.Tensor:
+    """Multiscale Σ-product over all 3 VM axes -> [N]."""
+    total = torch.zeros(xyz.shape[0], dtype=xyz.dtype, device=xyz.device)
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        total = total + vm_axis_sum(planes[i], lines[i], xyz[:, (m0, m1)], xyz[:, VEC_MODE[i]],
+                                    strides)
+    return total
+
+
 def sample_grid3d(vol: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
     """Trilinear sample of a [D, H, W, C] volume at xyz [N, 3] = (x, y, z) in
     [-1, 1] -> [N, C] in xyz's dtype; x indexes W, y H, z D, align_corners,

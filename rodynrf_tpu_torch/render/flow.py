@@ -1,5 +1,5 @@
 """Induced optical flow & disparity from volumetric 3D points (port of
-rodynrf_tpu/render/flow.py; reference renderer.py:1328-1392)."""
+rodynrf_tpu/render/flow.py; reference renderer.py:1299-1392)."""
 
 from __future__ import annotations
 
@@ -42,3 +42,26 @@ def induce_flow(H, W, focal, pose_neighbor, weights, pts_3d, pts_2d, rays, ray_t
         H, W, focal, pose_neighbor, weights, pts_3d, rays, ray_type
     )
     return pts_2d_neighbor - pts_2d, induced_disp
+
+
+def render_single_3d_point(H, W, f, c2w, pt_ndc):
+    """One NDC point per ray -> neighbor-camera pixel + disparity in [0, 1]
+    (reference: renderer.py:1299-1325). c2w [R, 3, 4]; pt_ndc [R, 3]."""
+    w2c = torch.transpose(c2w[:, :3, :3], 1, 2)
+    pts_world = ndc2world(pt_ndc, H, W, f) - c2w[..., 3]
+    pts_cam = torch.sum(pts_world[..., None, :] * w2c[:, :3, :3], -1)
+    pts_plane = torch.cat(
+        [
+            pts_cam[..., 0:1] / (-pts_cam[..., 2:]) * f + W * 0.5,
+            -pts_cam[..., 1:2] / (-pts_cam[..., 2:]) * f + H * 0.5,
+        ],
+        -1,
+    )
+    pts_cam_ndc = world2ndc(pts_cam, H, W, f)
+    return pts_plane, (pts_cam_ndc[:, 2:] + 1.0) / 2.0
+
+
+def induce_flow_single(H, W, focal, pose_neighbor, pts_3d_neighbor, pts_2d):
+    """(reference: renderer.py:1373-1380). Returns flow [R, 2]."""
+    pts_2d_neighbor, _ = render_single_3d_point(H, W, focal, pose_neighbor, pts_3d_neighbor)
+    return pts_2d_neighbor - pts_2d

@@ -35,7 +35,8 @@ def params_to_numpy(tree):
 
 
 # ---------------------------------------------------------------------------
-# the preprocessing networks: JAX parameter trees -> the port's state dicts
+# the preprocessing and LPIPS networks: JAX parameter trees -> the port's
+# state dicts
 # ---------------------------------------------------------------------------
 
 def _t(x) -> torch.Tensor:
@@ -139,4 +140,25 @@ def dpt_state_from_jax(params, cfg) -> dict:
         _conv(sd, f"{rf}.out_conv", p["out_conv"])
     for n, key in (("0", "head.conv1"), ("2", "head.conv2"), ("4", "head.conv3")):
         _conv(sd, f"scratch.output_conv.{n}", params[key])
+    return sd
+
+
+def lpips_state_from_jax(params, net: str) -> dict:
+    """rodynrf_tpu.eval.lpips_jax's parameter tree (init_lpips_params or
+    convert_lpips_state_dict, leaves as numpy) -> a state dict of the port's
+    `eval.lpips.LPIPS(net)`: HWIO kernels -> OIHW, each lin vector ->
+    [1, C, 1, 1], the scaling layer from the tree or, where it has none,
+    the constants the JAX package then uses."""
+    from ..eval.lpips import _SLICES, SCALE, SHIFT
+
+    sd = {}
+    conv_ids = [(s, i) for s, idxs in enumerate(_SLICES[net], 1) for i in idxs]
+    if len(conv_ids) != len(params["convs"]):
+        raise ValueError(f"{net}: {len(params['convs'])} convs, expected {len(conv_ids)}")
+    for (s, i), p in zip(conv_ids, params["convs"]):
+        _conv(sd, f"net.slice{s}.{i}", p)
+    for k, w in enumerate(params["lins"]):
+        sd[f"lin{k}.model.1.weight"] = _t(w).reshape(1, -1, 1, 1)
+    for name, default in (("shift", SHIFT), ("scale", SCALE)):
+        sd[f"scaling_layer.{name}"] = _t(params.get(name, default)).reshape(1, 3, 1, 1)
     return sd

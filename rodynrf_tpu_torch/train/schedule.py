@@ -83,6 +83,14 @@ class LrSchedule:
         self.main_mult = lr_scale
 
 
+def temp_weights(iteration: int):
+    """(Temp_static, Temp, Temp_disp_TV) annealing (train.py:1033-1036)."""
+    temp_static = 1.0 / (10 ** (iteration / 100000.0))
+    temp = 1.0 / (10 ** (iteration // 100000))
+    temp_disp_tv = 1.0 / (10 ** (iteration // 50000))
+    return temp_static, temp, temp_disp_tv
+
+
 class PermutationSampler:
     """Shuffled epoch sampler (reference: train.py:81-93 SimpleSampler)."""
 

@@ -38,7 +38,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..core.rays import get_ray_directions_lean, get_rays_lean, ids2pixel, ndc_rays_blender
+from ..core.rays import get_rays_lean, ids2pixel, make_rays, ndc_rays_blender
 from ..core.se3 import pose_to_mtx
 from ..fields import dynamic as dyn_field
 from ..fields import static as stat_field
@@ -155,11 +155,8 @@ def _rays_from_idx(ray_idx, poses_mtx, focal, S: StepStatics):
     """Pixel ids -> packed rays + per-ray pose/time index (train.py:1066-1088)."""
     H, W = S.H, S.W
     i, j, view_ids = ids2pixel(W, H, ray_idx)
-    dirs = get_ray_directions_lean(i, j, (focal, focal), (W / 2, H / 2))
-    rays_o, rays_d = get_rays_lean(dirs, poses_mtx[view_ids])
-    if S.ray_type == "ndc":
-        rays_o, rays_d = ndc_rays_blender(H, W, (focal, focal), 1.0, rays_o, rays_d)
-    return torch.cat([rays_o, rays_d], -1), i, j, view_ids
+    rays = make_rays(i, j, (focal, focal), (W / 2, H / 2), poses_mtx[view_ids], H, W, S.ray_type)
+    return rays, i, j, view_ids
 
 
 def _rays_from_uv(uv, pose_per_ray, focal, S: StepStatics):
@@ -604,11 +601,8 @@ def train_loss(
         poses_per_ray = poses_mtx[view_ids]
 
         def _neighbor_rays(ii, jj):
-            dirs = get_ray_directions_lean(ii, jj, (focal, focal), (W / 2, H / 2))
-            ro, rd = get_rays_lean(dirs, poses_per_ray)
-            if S.ray_type == "ndc":
-                ro, rd = ndc_rays_blender(H, W, (focal, focal), 1.0, ro, rd)
-            return torch.cat([ro, rd], -1)
+            return make_rays(ii, jj, (focal, focal), (W / 2, H / 2), poses_per_ray, H, W,
+                             S.ray_type)
 
         specs["F"] = _spec(_neighbor_rays(i_n, j_px), ts_train, False, "stat_out")
         specs["G"] = _spec(_neighbor_rays(i_px, j_n), ts_train, False, "stat_out")

@@ -65,8 +65,7 @@ def init_pose_params(scene: SceneData, n_cams: int) -> np.ndarray:
     return init
 
 
-# ROADMAP.md queue 1 items that bring what the port refuses
-MESH_LPIPS = "ROADMAP.md queue 1, item 3: mesh export and LPIPS"
+# the ROADMAP.md queue 1 item that brings what the port refuses
 PARALLELISM = "ROADMAP.md queue 1, item 4: parallelism"
 
 

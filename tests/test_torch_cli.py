@@ -16,7 +16,7 @@ at the golden fixture's size (4 frames of 24×32, golden/tiny.txt).
   them too with --compact_eval 1, and renders the dense masked path with
   --compact_eval 0.
 - What the port does not have yet is refused with NotImplementedError
-  naming its ROADMAP item: --export_mesh 1. `python -m rodynrf_tpu_torch`
+  naming its ROADMAP item: --shard_grids 1. `python -m rodynrf_tpu_torch`
   refuses without a card.
 """
 
@@ -164,7 +164,7 @@ def test_memory_options_through_the_cli(run, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--export_mesh", "1"), "export_mesh"),
+    (("--shard_grids", "1"), "shard_grids"),
 ])
 def test_unported_options_are_refused(run, extra, match):
     tmp, _ = run
@@ -187,13 +187,15 @@ def test_module_entry_refuses_without_a_card():
 def test_chip_smoke_cli_and_golden_phases_rehearse_on_the_cpu(monkeypatch):
     """chip_smoke.py phases 7 and 8 at a small size on the CPU (the card's
     memory and launch counters stubbed): the CLI, render_only and resume
-    path of phase 7 and the golden gates of phase 8 run and pass here."""
+    path of phase 7, the mesh export and LPIPS of phase 12 inside it (32×32
+    frames: AlexNet's pools need 31 pixels) and the golden gates of phase 8
+    run and pass here."""
     import chip_smoke as cs
 
     for fn in ("synchronize", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
-    monkeypatch.setattr(cs, "CLI_SCENE", dict(T=12, H=36, W=64))
+    monkeypatch.setattr(cs, "CLI_SCENE", dict(T=12, H=64, W=64))
     monkeypatch.setattr(cs, "CLI_VOXELS", "4096")
     per_step = {"coalesce": 15, "segsum": 0}
     monkeypatch.setattr(cs, "counters", lambda: {k: v * cs.CLI_STEPS for k, v in per_step.items()})

@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_builds_nothing():
                 "rodynrf_tpu_torch.preprocess.generate_flow",
                 "rodynrf_tpu_torch.preprocess.generate_depth",
                 "rodynrf_tpu_torch.preprocess.generate_mask", "rodynrf_tpu_torch.data.colmap",
-                "rodynrf_tpu_torch.utils.profiling"}
+                "rodynrf_tpu_torch.utils.profiling", "rodynrf_tpu_torch.eval.mesh",
+                "rodynrf_tpu_torch.eval.lpips", "rodynrf_tpu_torch.core.rays_extra"}
     assert expected <= set(res["modules"])
     assert res["bad"] == []
     assert res["started"] == []
