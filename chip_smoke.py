@@ -136,17 +136,49 @@ result):
          evaluation (committed mask, --compact_eval 1) whose mean.txt must
          carry finite lpips_alex and lpips_vgg. Neither kernel runs; one
          `mesh_lpips` JSON line;
+  13. (after 10b) the distributed step (parallel/, train/step.py's mesh
+     path) on the card, last, in a NCCL process group this script starts:
+     13a. world size 1, the default path at 300³ (one batch of 1024, store
+         mode): a trainer on the 1-rank data mesh and two non-distributed
+         ones from the same seed take 3 steps in turns on the same batches
+         and draws under torch's deterministic algorithms; every loss and
+         gradient leaf of the distributed step within 1e-6 of the first
+         non-distributed one's, or within twice the second's difference from
+         it where that is larger (the line says how many leaves are equal bit
+         for bit); then 3 timed steps of the distributed and the first
+         trainer as the card runs by default: ms/step of both; the
+         distributed steps' table-gradient launches (the counts set to 0
+         before each of its steps), one flattened gradient all-reduce's time;
+         a `main_path` line with path `dp1`;
+     13b. the same with --shard_grids 1 (at world size 1 each shard is the
+         whole grid, but the gather, the reduce-scatter and Adam on the
+         shard run): 3 deterministic steps against 13a's, 3 timed, its
+         peak; path `dp1_shard_grids`;
+     13c. with more than one card: cli.main at 300³ on phase 7's on-disk
+         scene, 3 steps on one card (twice) and on every card (--n_devices
+         0, one spawned NCCL worker per card), on two paths. float32
+         strided (every rank's gradient reaches the average unrounded):
+         every step's loss within 1e-5 of one card's, or within 4 times one
+         card's own difference at that step where that is larger. The
+         default path (bf16 merged dynamic tables, which each rank rounds to
+         bf16 before the average): the first step's loss (the same
+         parameters and batch) within 1e-5, every step's difference printed
+         beside float32's; steady ms/step, rays/s, rank 0's peak; then one
+         640³ step with --shard_grids 1 at the recipe's auto grad_accum. On
+         one card a line says it was not run and why;
   6. (printed last) a `main_path` JSON line per path, one JSON line of
      kernels, the nvidia-smi line, and the result line.
 
 `python3 chip_smoke.py --kernels-only` runs phases 1-3 alone and prints the
-cases as one `kernel_cases` JSON line.
+cases as one `kernel_cases` JSON line; `python3 chip_smoke.py
+--parallel-only` runs phases 1, 2 and 13.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -170,6 +202,9 @@ RECIPE = [
 # the 300³ operating points of PERF.md §5 are single batches of 1024 rays in
 # store mode, so they ask for that.
 ONE_BATCH = ["--grad_accum", "1", "--remat", "off"]
+# the CLI phases count kernel launches in this process: one process, whatever
+# the card count (phase 13c trains on every card)
+ONE_PROCESS = ["--n_devices", "1"]
 CONFIG_F32 = RECIPE + ONE_BATCH + ["--bf16", "0", "--vm_layout", "strided"]
 CONFIG_DEFAULT = RECIPE + ONE_BATCH  # --bf16 1 --vm_layout auto: the recipe's defaults
 # phase 10a: the step's memory options at 300³, beside the default path
@@ -214,6 +249,23 @@ MESH_CROP = 96
 MESH_PROFILE_SLAB = 16  # x-planes of the grown field under the profiler: 16·368·220 = 20 chunks
 MESH_ALPHA_ATOL = 1e-5  # alpha in [0, 1]; f32 field products in another order
 LPIPS_REL_LIMIT, LPIPS_CPU_HW, LPIPS_SELF_MAX = 1e-4, (96, 128), 1e-9
+# phase 13: the distributed step at the default path's 300³ point
+DP_STEPS = 3
+# of max|non-distributed gradient| per leaf, and of each loss; where the
+# card's own run-to-run difference (a second non-distributed trainer from
+# the same seed) is larger, twice that
+DP_GRAD_RTOL = 1e-6
+DP_ALLREDUCE_REPS = 20
+# 13c: every card's loss against one card's at each step: the bound of
+# tests/test_torch_parallel_cli.py (two gloo ranks against one process, float32
+# sums in another order), or MULTI_OWN_FACTOR times one card's own difference
+# from a second one-card run where that is larger. Held at every step on the
+# float32 strided path; on the default path at the first step (the same
+# parameters and batch), since each rank rounds its bf16 merged-table gradient
+# before the average (the contract tests/test_torch_parallel.py holds the
+# step to) and Adam's first updates follow the gradients' signs
+MULTI_LOSS_RTOL, MULTI_OWN_FACTOR = 1e-5, 4.0
+CONFIG_MULTI = {"f32_strided": ["--bf16", "0", "--vm_layout", "strided"], "default": []}
 
 
 def log(*a):
@@ -1061,7 +1113,7 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
                 "--downsample_train", "2", "--N_voxel_init", CLI_VOXELS,
                 "--n_iters", str(CLI_STEPS), "--no_tensorboard", "1", "--render_test", "1",
                 "--render_path", "0", "--N_vis", "0", "--progress_refresh_rate", "1",
-                *ONE_BATCH]
+                *ONE_BATCH, *ONE_PROCESS]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
@@ -1952,9 +2004,348 @@ def golden_gates(smi: str, device: str = "cuda"):
     return {"grad_worst_rel": rel[worst], "grad_worst": worst, "th_render_psnr": psnrs}
 
 
+def timed_step(tr):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    m = tr.run_step()
+    torch.cuda.synchronize()
+    return m, time.time() - t0
+
+
+def grad_tree(tr):
+    from rodynrf_tpu_torch.train.step import named_leaves
+
+    return {p: t.grad.detach().clone() for p, t in named_leaves(tr.full_params())
+            if t.grad is not None} if not tr.grid_dims else {
+        p: g for p, g in named_leaves(_whole_grads(tr))}
+
+
+def _whole_grads(tr):
+    from rodynrf_tpu_torch.parallel.mesh import gather_full, mesh_group
+
+    tree = {k: tr.params[k] for k in ("static", "dynamic", "pose", "fov")}
+    grads = _map_tree(lambda t: t.grad.detach(), tree)
+    return gather_full(grads, tr.grid_dims, mesh_group(tr.mesh))
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def compare_steps(label, ref_m, ref_g, m, g):
+    """Every loss and gradient leaf of a step against the reference step's:
+    {loss_rel, grad_rel (worst of scale), bit_equal leaves, leaves, top: the
+    three leaves furthest off}."""
+    if set(g) != set(ref_g):
+        raise AssertionError(f"{label}: gradient leaves {sorted(set(g) ^ set(ref_g))}")
+    rels, equal = {}, 0
+    for p, r in ref_g.items():
+        x = g[p].to(r.device)
+        equal += int(torch.equal(x, r))
+        rels[p] = float((x - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+    top = sorted(rels, key=rels.get, reverse=True)[:3]
+    return {"loss_rel": max(abs(float(m[k]) - float(ref_m[k])) / max(abs(float(ref_m[k])), 1e-30)
+                            for k in ref_m),
+            "grad_rel": max(rels.values()), "bit_equal": equal, "leaves": len(ref_g),
+            "top": [["/".join(map(str, p)), rels[p]] for p in top]}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms for the body (warn_only: an op
+    without a deterministic version runs as it is); yields the list of the
+    distinct warnings it raised."""
+    import warnings
+
+    seen = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+        seen.extend(sorted({str(w.message)[:160] for w in caught
+                            if "deterministic" in str(w.message)}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def check_against(label, got, card_self):
+    """`got` (compare_steps) within DP_GRAD_RTOL, or within twice the card's
+    own run-to-run difference of the same step where that is larger."""
+    for key in ("loss_rel", "grad_rel"):
+        bound = max(DP_GRAD_RTOL, 2.0 * card_self[key])
+        if got[key] > bound:
+            raise AssertionError(f"{label}: {key} {got[key]:.3e} past {bound:.3e} (the card's "
+                                 f"own {card_self[key]:.3e}); furthest leaves {got['top']}")
+
+
+def drive_distributed(scene, smi: str):
+    """Phase 13: the distributed step on this card. 13a: a NCCL process
+    group of world size 1 and a default-path trainer on its data mesh,
+    stepped with a non-distributed trainer from the same seed (the same
+    weights, batches and draws): losses and every gradient leaf compared,
+    ms/step of both, table-gradient launches of the distributed steps, one
+    gradient all-reduce's time. 13b: the same with --shard_grids 1 against
+    13a's steps, with its peak. 13c: every card through cli.main when the
+    machine has more than one. Returns the main-path records."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rodynrf_tpu_torch.parallel.collectives import all_reduce_mean_
+    from rodynrf_tpu_torch.parallel.mesh import mesh_group
+    from rodynrf_tpu_torch.train import Trainer, parse_cmd
+    from rodynrf_tpu_torch.train.step import named_leaves
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")  # under TMPDIR, as launch.run_ranks
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    records = []
+    try:
+        t_phase = time.time()
+        ref = Trainer(parse_cmd(" ".join(CONFIG_DEFAULT + ONE_PROCESS)), scene)
+        again = Trainer(parse_cmd(" ".join(CONFIG_DEFAULT + ONE_PROCESS)), scene)
+        dp = Trainer(parse_cmd(" ".join(CONFIG_DEFAULT)), scene)
+        if ref.mesh is not None or dp.mesh is None or dp.mesh.size() != 1:
+            raise AssertionError("13a: the distributed trainer is not on a 1-rank data mesh")
+        S, layouts = dp.step_fn.S, dp.table_layouts()
+        per_step = launches_per_step(S, layouts)
+        ref_ms, dp_ms, cmp, own, saved, timed_cmp = [], [], [], [], [], []
+        launches = {k: 0 for k in KERNELS}
+
+        def dp_step():
+            reset_counters()
+            m, t = timed_step(dp)
+            c = counters()
+            launches.update({k: launches[k] + c[k] for k in KERNELS})
+            return m, t
+
+        torch.cuda.reset_peak_memory_stats()
+        # the compared steps: under torch's deterministic algorithms, so the
+        # card's atomics (index_add_, scatter_add_ backwards) do not hide what
+        # the mesh path changes; `again` shows what remains of them
+        with deterministic_algorithms() as nondeterministic:
+            for i in range(DP_STEPS):
+                m_ref, _ = timed_step(ref)
+                g_ref = grad_tree(ref)
+                m_again, _ = timed_step(again)
+                own.append(compare_steps(f"13a step {i}, again", m_ref, g_ref, m_again,
+                                         grad_tree(again)))
+                m_dp, _ = dp_step()
+                g_dp = grad_tree(dp)
+                cmp.append(compare_steps(f"13a step {i}", m_ref, g_ref, m_dp, g_dp))
+                log(f"[13a] step {i}: distributed vs not {json.dumps(cmp[-1])}; the card's "
+                    f"own run-to-run {json.dumps(own[-1])}")
+                check_against(f"13a step {i}", cmp[-1], own[-1])
+                saved.append(({k: float(v) for k, v in m_dp.items()},
+                              {p: v.cpu() for p, v in g_dp.items()}))
+                del g_ref, g_dp
+        # the timed steps: the card as it runs by default
+        for i in range(DP_STEPS):
+            m_ref, t_ref = timed_step(ref)
+            g_ref = grad_tree(ref)
+            m_dp, t_dp = dp_step()
+            timed_cmp.append(compare_steps(f"13a timed step {i}", m_ref, g_ref, m_dp,
+                                           grad_tree(dp)))
+            ref_ms.append(t_ref * 1e3)
+            dp_ms.append(t_dp * 1e3)
+            del g_ref
+        peak_dp = torch.cuda.max_memory_allocated()
+        if launches != {k: v * 2 * DP_STEPS for k, v in per_step.items()}:
+            raise AssertionError(f"13a: launches {launches} != {per_step} x {2 * DP_STEPS}")
+        group = mesh_group(dp.mesh)
+        bufs = [t.grad.detach().clone() for _, t in named_leaves(dp.params)]
+        ar_bytes = sum(b.numel() * b.element_size() for b in bufs)
+        ar_ms, ar_spread = median_ms(lambda: all_reduce_mean_(bufs, group), windows=5,
+                                     reps=DP_ALLREDUCE_REPS)
+        del ref, again, bufs
+        torch.cuda.empty_cache()
+        med = lambda xs: sorted(xs)[len(xs) // 2]
+        rec = {
+            "path": "dp1", "world_size": 1, "backend": dist.get_backend(), "grid":
+            list(S.static_cfg.grid_size), "layouts": layouts, **policies(S),
+            "n_samples": S.n_samples, "steps": DP_STEPS, "ms_per_step": dp_ms,
+            "ms_per_step_median": med(dp_ms), "default_ms_per_step": ref_ms,
+            "default_ms_per_step_median": med(ref_ms),
+            "rays_per_s": dp.args.batch_size / (med(dp_ms) / 1e3),
+            "launches": launches, "launches_per_step": per_step,
+            "vs_default": cmp, "default_vs_itself": own,
+            "deterministic_mode_warned": nondeterministic,
+            "vs_default_timed_steps": timed_cmp,
+            "allreduce_ms": ar_ms, "allreduce_spread_ms": ar_spread, "allreduce_bytes": ar_bytes,
+            # three 300³ trainers' state resident (dp and the two references)
+            "peak_gib_three_trainers": peak_dp / 2**30, "card": smi,
+        }
+        log(f"[13a] dp1 (NCCL, world 1): {rec['ms_per_step_median']:.1f} ms/step against the "
+            f"non-distributed default's {rec['default_ms_per_step_median']:.1f} in the same call; "
+            f"gradients within {max(c['grad_rel'] for c in cmp):.3e} of scale "
+            f"({[c['bit_equal'] for c in cmp]} of {cmp[0]['leaves']} leaves bit for bit per "
+            f"step, deterministic algorithms), the default against itself "
+            f"{max(c['grad_rel'] for c in own):.3e}; in the timed steps (the card's atomics "
+            f"on) {max(c['grad_rel'] for c in timed_cmp):.3e}; launches "
+            f"{launches}; gradient all-reduce {ar_ms:.3f} ms over {ar_bytes / 2**20:.1f} MiB "
+            f"({smi})")
+        log(json.dumps({"main_path": rec}))
+        records.append(rec)
+        del dp
+        torch.cuda.empty_cache()
+
+        # 13b. --shard_grids 1: at world size 1 the shard is the whole grid
+        sh = Trainer(parse_cmd(" ".join(CONFIG_DEFAULT + ["--shard_grids", "1"])), scene)
+        if not sh.grid_dims:
+            raise AssertionError("13b: no plane grid is sharded")
+        S_sh = sh.step_fn.S
+        per_step_sh = launches_per_step(S_sh, sh.table_layouts())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sh_ms, cmp_sh = [], []
+        launches_sh = {k: 0 for k in KERNELS}
+
+        def sh_step():
+            reset_counters()
+            m, t = timed_step(sh)
+            c = counters()
+            launches_sh.update({k: launches_sh[k] + c[k] for k in KERNELS})
+            return m, t
+
+        with deterministic_algorithms():
+            for i in range(DP_STEPS):
+                m_sh, _ = sh_step()
+                m_ref, g_ref = saved[i]
+                cmp_sh.append(compare_steps(f"13b step {i}", m_ref, g_ref, m_sh, grad_tree(sh)))
+                log(f"[13b] step {i}: against 13a {json.dumps(cmp_sh[-1])}")
+                check_against(f"13b step {i}", cmp_sh[-1], own[i])
+        for i in range(DP_STEPS):
+            sh_ms.append(sh_step()[1] * 1e3)
+        peak_sh = torch.cuda.max_memory_allocated()
+        if launches_sh != {k: v * 2 * DP_STEPS for k, v in per_step_sh.items()}:
+            raise AssertionError(f"13b: launches {launches_sh} != {per_step_sh} x "
+                                 f"{2 * DP_STEPS}")
+        rec_sh = {
+            "path": "dp1_shard_grids", "world_size": 1, "sharded_leaves": len(sh.grid_dims),
+            "ms_per_step": sh_ms, "ms_per_step_median": med(sh_ms),
+            "launches": launches_sh, "launches_per_step": per_step_sh,
+            "vs_dp1": cmp_sh, "peak_gib": peak_sh / 2**30,
+            "card": smi,
+        }
+        log(f"[13b] --shard_grids 1 ({len(sh.grid_dims)} planes, world 1): "
+            f"{rec_sh['ms_per_step_median']:.1f} ms/step, against 13a: gradients within "
+            f"{max(c['grad_rel'] for c in cmp_sh):.3e} of scale "
+            f"({[c['bit_equal'] for c in cmp_sh]} leaves bit for bit); peak "
+            f"{peak_sh / 2**30:.2f} GiB ({smi})")
+        log(json.dumps({"main_path": rec_sh}))
+        records.append(rec_sh)
+        del sh, saved
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    # 13c. every card: spawned workers (NCCL), one per card
+    if torch.cuda.device_count() > 1:
+        drive_multi_card(smi)  # its kernels run in the workers: not counted here
+    else:
+        log("[13c] not run: this machine has one card; NCCL refuses two ranks of one "
+            "communicator on one card, so the multi-rank numerics rest on the gloo tests on "
+            "the CPU (tests/test_torch_parallel*.py)")
+    log(f"[13] phase {time.time() - t_phase:.1f} s")
+    return records
+
+
+def drive_multi_card(smi: str):
+    """Phase 13c (more than one card): phase 7's on-disk scene, cli.main at
+    300³ for DP_STEPS steps on one card (twice: the card's own run-to-run
+    difference) and on every card (--n_devices 0: one spawned NCCL worker
+    per card), for each path of CONFIG_MULTI: float32 strided held at every
+    step, the default path at its first step (MULTI_LOSS_RTOL); then one
+    640³ --shard_grids 1 step on every card at the recipe's auto
+    grad_accum. Prints and returns the every-card record (its kernels ran
+    in the workers: their launches are not counted here)."""
+    import shutil
+    import tempfile
+
+    from rodynrf_tpu_torch.cli import main as cli_main
+    from rodynrf_tpu_torch.testing import write_video_scene
+
+    n = torch.cuda.device_count()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        write_video_scene(str(root / "scene"), **CLI_SCENE)
+        base = [RECIPE[0], RECIPE[1], "--datadir", str(root / "scene"),
+                "--basedir", str(root / "log"), "--downsample_train", "2",
+                "--N_voxel_init", CLI_VOXELS, "--n_iters", str(DP_STEPS), "--no_tensorboard",
+                "1", "--render_test", "0", "--N_vis", "0", "--progress_refresh_rate", "1",
+                *ONE_BATCH]
+        runs = {}
+        for path, extra_path in CONFIG_MULTI.items():
+            for name, extra in (("one", ONE_PROCESS), ("one_again", ONE_PROCESS),
+                                ("all", ["--n_devices", "0"])):
+                runs[path, name] = cli_main(base + ["--expname", f"{path}_{name}", *extra_path,
+                                                    *extra])
+        big = cli_main(base[:-len(ONE_BATCH)] + [
+            "--expname", "walk640", "--N_voxel_init", str(640 ** 3), "--n_iters", "1",
+            "--n_devices", "0", "--shard_grids", "1"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rel = lambda a, b: [abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"])]
+    paths = {}
+    for path in CONFIG_MULTI:
+        one, again, every = (runs[path, k] for k in ("one", "one_again", "all"))
+        all_rel, own_rel = rel(one, every), rel(one, again)
+        bound = [max(MULTI_LOSS_RTOL, MULTI_OWN_FACTOR * o) for o in own_rel]
+        held = range(DP_STEPS) if path == "f32_strided" else range(1)
+        if (every["n_devices"] != n or len(all_rel) != DP_STEPS
+                or not all(math.isfinite(x) for x in every["losses"])
+                or any(all_rel[i] > bound[i] for i in held)):
+            raise AssertionError(f"13c {path} on {every['n_devices']} of {n} cards: losses "
+                                 f"{every['losses']} against one card's {one['losses']} "
+                                 f"(relative {all_rel}, bounds {bound}, steps held "
+                                 f"{list(held)})")
+        paths[path] = dict(one=one, every=every, all_rel=all_rel, own_rel=own_rel, bound=bound,
+                           held=list(held))
+    if big["n_devices"] != n or not all(math.isfinite(x) for x in big["losses"]):
+        raise AssertionError(f"13c 640³: {big['losses']} on {big['n_devices']} of {n} cards")
+    # steady ms/step: between the first and the last progress line
+    ms = lambda r: 1e3 * (r["progress_s"][-1] - r["progress_s"][0]) / (DP_STEPS - 1)
+    one, every = paths["default"]["one"], paths["default"]["every"]
+    rec = {
+        "path": f"dp{n}", "world_size": n,
+        "losses": {p: v["every"]["losses"] for p, v in paths.items()},
+        "losses_one_card": {p: v["one"]["losses"] for p, v in paths.items()},
+        "loss_rel": {p: v["all_rel"] for p, v in paths.items()},
+        "loss_rel_one_card_again": {p: v["own_rel"] for p, v in paths.items()},
+        "loss_bound": {p: v["bound"] for p, v in paths.items()},
+        "steps_held": {p: v["held"] for p, v in paths.items()},
+        "ms_per_step": ms(every), "ms_per_step_one_card": ms(one),
+        "ms_per_step_f32": ms(paths["f32_strided"]["every"]),
+        "ms_per_step_f32_one_card": ms(paths["f32_strided"]["one"]),
+        "rays_per_s": 1024 / (ms(every) / 1e3), "rays_per_s_one_card": 1024 / (ms(one) / 1e3),
+        "first_step_s": every["progress_s"][0], "peak_gib_rank0": every.get("peak_gib"),
+        "peak_gib_one_card": one.get("peak_gib"),
+        "walk640_shard_grids": {"loss": big["losses"], "step_s": big["progress_s"][0],
+                                "peak_gib_rank0": big.get("peak_gib")},
+        "card": smi,
+    }
+    for p, v in paths.items():
+        log(f"[13c] {p}: {n} cards' losses off one card's by {v['all_rel']} (one card against "
+            f"itself {v['own_rel']}; held at steps {v['held']} to {v['bound']})")
+    log(f"[13c] {n} cards, default path: {rec['ms_per_step']:.1f} ms/step "
+        f"({rec['rays_per_s']:.0f} rays/s) against one card's {rec['ms_per_step_one_card']:.1f}; "
+        f"peak {rec['peak_gib_rank0']:.2f} GiB on rank 0 (one card "
+        f"{rec['peak_gib_one_card']:.2f}); 640³ --shard_grids 1 step "
+        f"{big['progress_s'][0]:.1f} s, peak {big.get('peak_gib'):.2f} GiB on rank 0 ({smi})")
+    log(json.dumps({"main_path": rec}))
+    return rec
+
+
 def main() -> int:
     t_start = time.time()
     kernels_only = "--kernels-only" in sys.argv[1:]
+    parallel_only = "--parallel-only" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
@@ -1977,6 +2368,14 @@ def main() -> int:
             log(f"[build] {name}: {fn}: {info}")
 
     scene = make_synthetic_scene(**SCENE, ray_type=parse_cmd(" ".join(RECIPE)).ray_type)
+    if parallel_only:  # phase 13 alone
+        for rec in drive_distributed(scene, smi):
+            log(f"[13] {rec['path']}: launches {rec['launches']}")
+        log(f"[done] {time.time() - t_start:.1f} s")
+        log(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": count}}), flush=True)
+        return 0
     # the two paths' trainers (the kernel checks draw their inputs from them)
     trainers = {}
     for path, config in (("f32_strided", CONFIG_F32), ("default", CONFIG_DEFAULT)):
@@ -2054,6 +2453,9 @@ def main() -> int:
     # 10b-10c. the recipe's upsample schedule to 640³, the kernels there
     walk, cases_640 = walk_schedule(scene, smi)
     records.append(walk)
+
+    # 13. the distributed step (a NCCL group of its own, torn down after)
+    records.extend(drive_distributed(scene, smi))
 
     # 6. report
     def launches(kernel):

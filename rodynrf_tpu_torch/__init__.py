@@ -10,6 +10,11 @@ first use into `build/rodynrf_tpu_torch/`.
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for the
 CPU; on CPU tensors every kernel wrapper takes its plain PyTorch version.
+
+Data parallelism over rays (`parallel/`) runs one process per card on
+NCCL where the JAX package runs one process over all devices under GSPMD:
+`python -m rodynrf_tpu_torch` spawns them, torchrun starts them across
+nodes, and the CPU tests run the same code over gloo processes.
 """
 
 import torch

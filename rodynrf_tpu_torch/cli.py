@@ -4,6 +4,7 @@ reference train.py:2661-2675).
 
     python -m rodynrf_tpu_torch --config configs/Nvidia_no_poses.txt
     python -m rodynrf_tpu_torch --config ... --render_only 1 --render_test 1 --render_path 1
+    torchrun --nnodes N --nproc_per_node G -m rodynrf_tpu_torch --config ...
 
 `main(argv, device="cuda")` is the entry point; it runs on the card and
 refuses without one unless the caller passes device="cpu". Occupancy masks
@@ -17,6 +18,13 @@ too if --render_only asks). mean.txt carries LPIPS where weights are given
 ($LPIPS_WEIGHTS_DIR; eval/metrics.rgb_lpips).
 Each function returns a small report (timings, PSNRs, paths) besides
 writing what train.py writes.
+
+Training runs data-parallel over rays on every card (`--n_devices 0`, the
+default) or on N of them: one process per card on NCCL (parallel/launch.py),
+a batch that does not divide the cards shards over the largest divisor.
+On the CPU `--n_devices N` spawns N gloo processes. Under torchrun each
+process joins the job's group. Rank 0 logs, writes TensorBoard, saves and
+evaluates; the other ranks train with it and return after the last step.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from .train.config import config_parser
 from .train.convert import params_from_numpy
 from .train.step import check_device
 from .train.trainer import Trainer
+from .parallel import mesh as pmesh
 
 
 class _DummyWriter:
@@ -75,28 +84,26 @@ def _current_cameras(trainer):
     return poses_mtx, float(focal)
 
 
-def _save_ckpts(trainer, logfolder, expname):
-    """`{expname}.npz` (+ the `.th` pair with --export_th 1). Returns
-    (seconds, bytes of the .npz)."""
+def _save_ckpts(trainer, params, logfolder, expname):
+    """`{expname}.npz` (+ the `.th` pair with --export_th 1) of `params`
+    (trainer.full_params()). Returns (seconds, bytes of the .npz)."""
     t0 = time.perf_counter()
     poses_mtx, focal = _current_cameras(trainer)
     path = f"{logfolder}/{expname}.npz"
     save_checkpoint(
-        path,
-        {k: trainer.params[k] for k in ("static", "dynamic", "pose", "fov")},
-        trainer.static_cfg, trainer.dynamic_cfg, trainer.aabb,
+        path, params, trainer.static_cfg, trainer.dynamic_cfg, trainer.aabb,
         extra={"focal": focal, "iteration": trainer.iteration},
         alpha_mask=trainer.alpha_mask,
     )
     if trainer.args.export_th:
-        export_th(f"{logfolder}/{expname}.th", trainer.params["dynamic"], trainer.dynamic_cfg,
+        export_th(f"{logfolder}/{expname}.th", params["dynamic"], trainer.dynamic_cfg,
                   trainer.aabb, poses_mtx, focal, dynamic=True, alpha_mask=trainer.alpha_mask)
-        export_th(f"{logfolder}/{expname}_static.th", trainer.params["static"],
+        export_th(f"{logfolder}/{expname}_static.th", params["static"],
                   trainer.static_cfg, trainer.aabb, poses_mtx, focal, dynamic=False)
     return time.perf_counter() - t0, os.path.getsize(path)
 
 
-def _tb_vis_images(trainer, scene, args, writer, it):
+def _tb_vis_images(trainer, params, scene, args, writer, it):
     """Render test views into TensorBoard with the reference's image
     families (reference: train.py:2428-2580 + renderer.py:318-657):
     rgb/depth full+static+dynamic, blending, GT rgb/flow/mask, induced
@@ -115,7 +122,7 @@ def _tb_vis_images(trainer, scene, args, writer, it):
     n_vis = min(args.N_vis if args.N_vis > 0 else scene.n_frames, scene.n_frames)
     idxs = np.linspace(0, scene.n_frames - 1, n_vis).astype(int)
     ts = np.linspace(-1, 1, scene.n_frames) if scene.n_frames > 1 else np.zeros(1)
-    params = {"static": trainer.params["static"], "dynamic": trainer.params["dynamic"]}
+    params = {"static": params["static"], "dynamic": params["dynamic"]}
     T = scene.n_frames
 
     frames = []
@@ -203,21 +210,28 @@ def _pose_diagnostics(trainer, scene, writer, it):
 def reconstruction(args, device="cuda"):
     """Load, train, checkpoint, evaluate (reference: train.py:824-2658).
     Returns {loader_s, train_s, save_s, ckpt, ckpt_bytes, psnrs, frame_s,
-    eval_s, losses, compaction}: `losses` the total loss at each progress
-    line, `compaction` the step's bucket sizes at the end {k, flat, mask}."""
+    eval_s, losses, progress_s, compaction, n_devices, peak_gib (on the card:
+    this process's peak allocation over the training)}: `losses` the total
+    loss at each progress line and `progress_s` the seconds since the first
+    step began, `compaction` the step's bucket sizes at the end {k,
+    flat, mask}. In a process group only rank 0 reports; the others return None."""
     t0 = time.perf_counter()
     scene = load_scene(args)
     report = {"loader_s": time.perf_counter() - t0}
     logfolder = f"{args.basedir}/{args.expname}"
-    os.makedirs(logfolder, exist_ok=True)
-    writer = _tb_writer(args.tblogdir or logfolder, args.no_tensorboard)
 
     trainer = Trainer(args, scene, device=device)
-    print(f"grid {trainer.static_cfg.grid_size}, nSamples {trainer.n_samples}, "
-          f"rays {scene.n_rays}, device {trainer.device}")
+    main_rank = trainer.rank == 0
+    if main_rank:
+        os.makedirs(logfolder, exist_ok=True)
+    writer = _tb_writer(args.tblogdir or logfolder, args.no_tensorboard or not main_rank)
+    n_dev = trainer.mesh.size() if trainer.mesh is not None else 1
+    report["n_devices"] = n_dev
+    trainer._print(f"grid {trainer.static_cfg.grid_size}, nSamples {trainer.n_samples}, "
+                   f"rays {scene.n_rays}, device {trainer.device} x{n_dev}")
 
     t0 = time.time()
-    window, losses = [], []
+    window, losses, progress_s = [], [], []
     start = trainer.iteration
     update_alpha_iters = set(args.update_AlphaMask_list)
     for it in range(start, args.n_iters):
@@ -228,11 +242,12 @@ def reconstruction(args, device="cuda"):
         if (it + 1) in update_alpha_iters:
             trainer.update_alpha_mask()
         # metrics are read back from the device only here (train.py:210-215)
-        if (it + 1) % args.progress_refresh_rate == 0:
+        if main_rank and (it + 1) % args.progress_refresh_rate == 0:
             host = {k: float(v) for k, v in metrics.items()}
             window.append(host["psnr"])
             losses.append(host["total_loss"])
             dt = time.time() - t0
+            progress_s.append(dt)
             rays_s = args.batch_size * (it + 1 - start) / dt
             print(
                 f"iter {it+1:06d} loss {host['total_loss']:.4f} "
@@ -243,20 +258,32 @@ def reconstruction(args, device="cuda"):
             if args.with_GT_poses and args.optimize_poses and scene.poses is not None:
                 _pose_diagnostics(trainer, scene, writer, it)
         if (it + 1) % 10000 == 0:
-            _save_ckpts(trainer, logfolder, args.expname)
+            params = trainer.full_params()
+            if main_rank:
+                _save_ckpts(trainer, params, logfolder, args.expname)
 
         # train-time TB visualization (reference: train.py:2428-2580).
         # Failures propagate: a broken vis path must fail the run, not warn.
         if args.N_vis != 0 and (it + 1) % args.vis_train_every == 0:
-            _tb_vis_images(trainer, scene, args, writer, it)
+            params = trainer.full_params()
+            if main_rank:
+                _tb_vis_images(trainer, params, scene, args, writer, it)
     if trainer.device.type == "cuda":
         torch.cuda.synchronize()
+        report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     report["train_s"] = time.time() - t0
     report["losses"] = losses
+    report["progress_s"] = progress_s
     report["compaction"] = {"k": trainer.compact_k, "flat": trainer.compact_flat,
                             "mask": trainer.alpha_mask is not None}
 
-    report["save_s"], report["ckpt_bytes"] = _save_ckpts(trainer, logfolder, args.expname)
+    params = trainer.full_params()  # the run's last collective
+    if not main_rank:
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize()  # let it finish before the group goes
+        return None
+    report["save_s"], report["ckpt_bytes"] = _save_ckpts(trainer, params, logfolder,
+                                                         args.expname)
     report["ckpt"] = f"{logfolder}/{args.expname}.npz"
 
     # final evaluation (train.py:2623-2641), with the trainer's mask if it
@@ -270,7 +297,7 @@ def reconstruction(args, device="cuda"):
     frame_s = []
     t0 = time.perf_counter()
     PSNRs, near_fars, _ = evaluate(
-        render_chunk, trainer.params, trainer.aabb, poses_mtx, focal, scene,
+        render_chunk, params, trainer.aabb, poses_mtx, focal, scene,
         args.ray_type, save_path=f"{logfolder}/imgs_test_all", n_vis=-1,
         compute_extra_metrics=True, frame_seconds=frame_s,
     )
@@ -395,16 +422,55 @@ def render_test(args, logfolder, device="cuda"):
     return report
 
 
+def _train_rank(rank, argv, device):
+    """One rank of a spawned data-parallel training run: the group is up,
+    the trainer adopts it."""
+    args = config_parser(argv)
+    np.random.seed(args.seed)
+    args.n_devices = 0
+    return reconstruction(args, device)
+
+
+def _train_devices(args, device) -> int:
+    """How many processes a training run takes: --n_devices, 0 = every card
+    (one on the CPU), cut to the largest divisor of the batch."""
+    n = int(args.n_devices)
+    if n <= 0:
+        n = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    return pmesh.resolve_devices(int(args.batch_size), n) if n > 1 else 1
+
+
 def main(argv=None, device="cuda"):
     """Parse `argv` (a list of arguments; None reads sys.argv) and dispatch
     as train.py does: --export_mesh 1 writes `<ckpt stem>.ply` from --ckpt;
     --render_only with --render_test or --render_path renders a checkpoint;
-    anything else, unless a mesh was exported, trains. Returns the
-    dispatched functions' report (the export's under "mesh")."""
+    anything else, unless a mesh was exported, trains: on one process, in
+    the process group torchrun started (or the caller did), or on
+    `_train_devices` spawned ranks. Returns the dispatched functions'
+    report (the export's under "mesh"; a rank other than 0 of a torchrun
+    job gets None)."""
+    import sys
+
+    import torch.distributed as dist
+
+    from .parallel.launch import run_ranks
+    from .parallel.multihost import global_mesh
+
     args = config_parser(argv)
     np.random.seed(args.seed)
-    print(args)
     check_device(device)
+    trains = not args.export_mesh and not (args.render_only and (args.render_test
+                                                                 or args.render_path))
+    if trains and not dist.is_initialized() and "RANK" in os.environ \
+            and "WORLD_SIZE" in os.environ:
+        global_mesh(torch.device(device).type)  # a torchrun job: join its group
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(args)
+    if trains and not dist.is_initialized():
+        n = _train_devices(args, device)
+        if n > 1:
+            return run_ranks(_train_rank, n, torch.device(device).type,
+                             (list(sys.argv[1:] if argv is None else argv), device))
     report = {}
     if args.export_mesh:
         if not args.ckpt:

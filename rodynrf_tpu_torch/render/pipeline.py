@@ -56,18 +56,30 @@ def _dists_and_viewdirs(rays, z_vals, ray_type):
     return dists, viewdirs
 
 
-def _flat_index(ray_valid: torch.Tensor, N: int):
+def _flat_index(ray_valid: torch.Tensor, N: int, base: Optional[torch.Tensor] = None):
     """Flat slot table over the occupied samples of a [R, S] mask: slot n ->
     row-major dense position idx_flat[n] in [0, R·S), the sentinel R·S for
     unused slots (gathers clamp it, the payload scatter drops it). Occupied
     samples past the N-th drop too. A cumsum and one scatter into an [N + 1]
     buffer whose last slot takes every dropped write: static shapes, no
-    host sync. Returns (idx_flat, idx_safe, ray id of each slot)."""
+    host sync. Returns (idx_flat, idx_safe, ray id of each slot).
+
+    base [R] (data parallelism over rays, train/step._flat_args): these rows
+    are one rank's part of a larger batch, and base[r] is added to row r's
+    sample positions to give their place in the whole batch's row-major
+    order; a sample is kept when that place is below N, so the ranks
+    together keep the whole batch's first N. The kept samples are a prefix
+    of the rows' own order, so min(N, R·S) slots hold them."""
     R, S = ray_valid.shape
     RS = R * S
     occf = ray_valid.reshape(-1)
     pos = torch.cumsum(occf.to(torch.int64), 0) - 1
-    src = torch.where(occf & (pos < N), pos, N)
+    if base is None:
+        keep = occf & (pos < N)
+    else:
+        keep = occf & (pos + base[:, None].expand(R, S).reshape(-1) < N)
+        N = min(N, RS)
+    src = torch.where(keep, pos, N)
     idx_flat = torch.full((N + 1,), RS, dtype=torch.int64, device=occf.device)
     idx_flat.scatter_(0, src, torch.arange(RS, dtype=torch.int64, device=occf.device))
     idx_flat = idx_flat[:N]
@@ -113,14 +125,15 @@ def _shade_compacted(shading_params, cfg: FieldConfig, weight, idx_keep, pts, vd
 
 def eval_static_field(params, cfg: FieldConfig, aabb, rays, ts, xyz, z_vals, ray_valid,
                       ray_type: str = "ndc", packed=None, dists=None,
-                      flat_n: int = 0) -> FieldEval:
+                      flat_n: int = 0, flat_base=None) -> FieldEval:
     """Static field forward over [R, S] samples.
 
     packed: prebuilt gather tables (stat.pack_tables), hoisted out of
     per-pass code. dists: precomputed unscaled dists (the compacted train
     step passes the dense consecutive-z dists gathered at its kept samples,
     which compacted z_vals cannot give). flat_n > 0: the per-sample work
-    runs through a flat [flat_n] bucket of the ray_valid samples."""
+    runs through a flat [flat_n] bucket of the ray_valid samples; flat_base:
+    this rank's row offsets into the whole batch's bucket (_flat_index)."""
     R, S, _ = xyz.shape
     dense_dists, viewdirs = _dists_and_viewdirs(rays, z_vals, ray_type)
     dists = (dense_dists if dists is None else dists) * cfg.distance_scale
@@ -130,7 +143,7 @@ def eval_static_field(params, cfg: FieldConfig, aabb, rays, ts, xyz, z_vals, ray
 
     if flat_n > 0:
         RS = R * S
-        idx_flat, idx_safe, rid = _flat_index(ray_valid, flat_n)
+        idx_flat, idx_safe, rid = _flat_index(ray_valid, flat_n, flat_base)
         pts_f = xyz_n.reshape(RS, 3).index_select(0, idx_safe)
         sigma_feat_f, app_f = stat.all_features_fused(params, cfg, pts_f, packed=packed)
         rgb_f = apply_shading(
@@ -175,10 +188,10 @@ def eval_static_field(params, cfg: FieldConfig, aabb, rays, ts, xyz, z_vals, ray
 
 def eval_dynamic_field(params, cfg: FieldConfig, aabb, rays, ts, xyz, z_vals, ray_valid,
                        ray_type: str = "ndc", packed=None, dists=None,
-                       flat_n: int = 0) -> FieldEval:
+                       flat_n: int = 0, flat_base=None) -> FieldEval:
     """Dynamic field forward over [R, S] samples. The deformation warp is
     evaluated once and shared by the density, blending and appearance
-    gathers. dists, flat_n: see eval_static_field; on the flat branch
+    gathers. dists, flat_n, flat_base: see eval_static_field; on the flat branch
     xyz_prime is zero off the kept samples (no loss reads it there)."""
     R, S, _ = xyz.shape
     dense_dists, viewdirs = _dists_and_viewdirs(rays, z_vals, ray_type)
@@ -188,7 +201,7 @@ def eval_dynamic_field(params, cfg: FieldConfig, aabb, rays, ts, xyz, z_vals, ra
 
     if flat_n > 0:
         RS = R * S
-        idx_flat, idx_safe, rid = _flat_index(ray_valid, flat_n)
+        idx_flat, idx_safe, rid = _flat_index(ray_valid, flat_n, flat_base)
         xyz_f = xyz.reshape(RS, 3).index_select(0, idx_safe)
         t_f = ts.index_select(0, rid)
         xyz_prime_f = dyn.warp_coordinate(params, xyz_f, t_f, aabb)

@@ -144,12 +144,14 @@ def config_parser(cmd: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
     # framework flags of the JAX package, absent from the reference
     parser.add_argument("--n_devices", type=int, default=0,
-                        help="data-parallel devices (0 = all available)")
+                        help="data-parallel devices, one process each (0 = every card, "
+                        "or the process group the caller started)")
     parser.add_argument("--seed", type=int, default=20211202)
     parser.add_argument("--bf16", type=int, default=1,
                         help="bfloat16 gather tables (0 = f32)")
     parser.add_argument("--shard_grids", type=int, default=0,
-                        help="shard plane grids and their Adam moments over devices")
+                        help="shard plane grids and their Adam moments over the data "
+                        "mesh (parallel/mesh.py)")
     parser.add_argument("--vm_layout", type=str, default="auto",
                         choices=["auto", "merged", "strided"],
                         help="multiscale gather-table layout (ops/fused_vm.py)")

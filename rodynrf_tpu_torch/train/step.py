@@ -23,7 +23,11 @@ evaluations instead (`_batched_passes`). With an occupancy mask
 bit and, with `compact_k`, compacted to a per-ray [R, K] bucket, optionally
 evaluated through a flat bucket (`compact_flat`). With `grad_accum` > 1 the
 ray batch is split into equal micro-batches whose gradients are averaged
-before one optimizer update (`TrainStep.grads_and_metrics`).
+before one optimizer update (`TrainStep.grads_and_metrics`). On a data mesh
+(`mesh`, parallel/mesh.py) each rank evaluates the passes on its span of the
+rays and gathers what the losses read; every rank computes the same global
+loss, and the gradients are averaged over the ranks (mesh.py's gradient
+rule).
 
 The three Adam optimizers (fields, pose, fov) update the parameters in
 place; their learning rates come from the host schedule on every step.
@@ -52,6 +56,9 @@ from ..ops.compositing import (
 )
 from ..ops.distortion import eff_distloss
 from ..ops.regularizers import line_orthogonality
+from ..parallel.collectives import all_gather_dim, gather_rows_packed
+from ..parallel.mesh import mesh_group, sync_gradients, working_copy
+from ..parallel.multihost import process_span
 from ..render.flow import induce_flow
 from ..render.pipeline import (
     FieldEval,
@@ -82,7 +89,7 @@ class LossWeights:
 @dataclass(frozen=True)
 class StepStatics:
     """Configuration of the train step (the JAX StepStatics fields the port
-    implements; the mesh is absent: one device)."""
+    implements)."""
 
     static_cfg: FieldConfig
     dynamic_cfg: FieldConfig
@@ -144,6 +151,12 @@ class StepStatics:
     # fill the RenderOutputs fields no loss reads with NaN instead of zeros,
     # so that a loss that reads one turns the total non-finite
     debug_nan_fill: bool = False
+    # data parallelism over rays: the 1-D data mesh (a DeviceMesh) whose
+    # ranks each evaluate a contiguous span of every pass's rays; None = one
+    # process. grid_dims: ((leaf path, axis), ...) of the plane grids kept
+    # sharded at rest over it (--shard_grids 1)
+    mesh: Any = None
+    grid_dims: tuple = ()
 
 
 def focal_from_fov(fov, H: int, W: int):
@@ -281,12 +294,13 @@ def _dual_pass(params, S: StepStatics, aabb, sp: PassSpec, packs, shared_st=None
         dists_pre = None
     R, nS = z_vals.shape
     # flat-bucket evals apply only on compacted geometry (dists_pre marks it)
-    flat_n = S.compact_flat * R if S.compact_flat > 0 and dists_pre is not None else 0
+    flat_n, flat_base = _flat_args(S, [ray_valid], dists_pre is not None)
 
     def run_dynamic():
         return _eval(
             eval_dynamic_field, S.remat, params["dynamic"], S.dynamic_cfg, aabb, rays, ts, xyz,
             z_vals, ray_valid, S.ray_type, packed=packed_dn, dists=dists_pre, flat_n=flat_n,
+            flat_base=flat_base,
         )
 
     if sp.mode == "dyn":
@@ -304,11 +318,13 @@ def _dual_pass(params, S: StepStatics, aabb, sp: PassSpec, packs, shared_st=None
             st = eval_static_field(
                 params["static"], S.static_cfg, aabb, rays, ts, xyz, z_vals, ray_valid,
                 S.ray_type, packed=packed_st, dists=dists_pre, flat_n=flat_n,
+                flat_base=flat_base,
             )
     else:
         st = _eval(
             eval_static_field, S.remat, params["static"], S.static_cfg, aabb, rays, ts, xyz,
             z_vals, ray_valid, S.ray_type, packed=packed_st, dists=dists_pre, flat_n=flat_n,
+            flat_base=flat_base,
         )
 
     if sp.mode == "stat":
@@ -394,15 +410,16 @@ def _batched_passes(params, S: StepStatics, aabb, specs, packs):
         rays = _cat([specs[n].rays for n in grp])
         dists = None if samp[grp[0]][3] is None else _cat([samp[n][3] for n in grp])
         # flat-bucket evals on compacted geometry only, sized by the rows
-        flat_n = S.compact_flat * rays.shape[0] if S.compact_flat > 0 and dists is not None else 0
+        flat_n, flat_base = _flat_args(S, [samp[n][2] for n in grp], dists is not None)
         return dict(rays=rays, ts=_cat([specs[n].ts for n in grp]),
                     xyz=_cat([samp[n][0] for n in grp]), z_vals=_cat([samp[n][1] for n in grp]),
-                    ray_valid=_cat([samp[n][2] for n in grp]), dists=dists, flat_n=flat_n)
+                    ray_valid=_cat([samp[n][2] for n in grp]), dists=dists, flat_n=flat_n,
+                    flat_base=flat_base)
 
     def evaluate(field_fn, p, cfg, packed, g, remat):
         return _eval(field_fn, remat, p, cfg, aabb, g["rays"], g["ts"], g["xyz"], g["z_vals"],
                      g["ray_valid"], S.ray_type, packed=packed, dists=g["dists"],
-                     flat_n=g["flat_n"])
+                     flat_n=g["flat_n"], flat_base=g["flat_base"])
 
     def split(ev, grp, out):
         off = 0
@@ -475,7 +492,7 @@ def _batched_passes(params, S: StepStatics, aabb, specs, packs):
     return res
 
 
-def _run_passes(params, S: StepStatics, aabb, specs, packs):
+def _run_local(params, S: StepStatics, aabb, specs, packs):
     """Batched (fused_passes) or sequential evaluation of the passes. The
     sequential passes run in eager order, one after another: the JAX
     package's optimization_barrier chain, which keeps XLA from overlapping
@@ -488,6 +505,105 @@ def _run_passes(params, S: StepStatics, aabb, specs, packs):
         shared = res[sp.static_from][1] if sp.static_from else None
         res[n] = _dual_pass(params, S, aabb, sp, packs, shared_st=shared)
     return res
+
+
+def _span(S: StepStatics, n_rows: int):
+    """This rank's [start, end) of n_rows rays on the data mesh."""
+    return process_span(n_rows, S.mesh.get_local_rank(), S.mesh.size())
+
+
+def _flat_args(S: StepStatics, valids, compacted: bool):
+    """(N, row offsets) of the flat bucket of one field evaluation over the
+    concatenated rows of `valids` (one [R_p, S] occupancy per pass): N =
+    compact_flat × the whole batch's rows, 0 off compacted geometry. On a
+    data mesh the rows are this rank's span of each pass, and row r of pass
+    p gets the offset of its samples in the whole batch's row-major order
+    (every rank's rows of the earlier passes, the earlier ranks' rows of
+    pass p) less this rank's earlier-pass samples: one all-gather of the
+    per-pass occupied counts, no host sync (render/pipeline._flat_index)."""
+    if S.compact_flat <= 0 or not compacted:
+        return 0, None
+    rows = sum(v.shape[0] for v in valids)
+    if S.mesh is None:
+        return S.compact_flat * rows, None
+    W, r = S.mesh.size(), S.mesh.get_local_rank()
+    counts = torch.stack([v.sum() for v in valids]).to(torch.int64)
+    C = all_gather_dim(counts, 0, mesh_group(S.mesh)).view(W, -1)  # [W, P]
+    per_pass = C.sum(0)
+    delta = (torch.cumsum(per_pass, 0) - per_pass + C[:r].sum(0)
+             - (torch.cumsum(C[r], 0) - C[r]))
+    return S.compact_flat * rows * W, torch.cat([delta[p].expand(v.shape[0])
+                                                 for p, v in enumerate(valids)])
+
+
+# what train_loss reads of each pass's compositor outputs, by mode; on a data
+# mesh only these are gathered, and the others are NaN placeholders, so that
+# a loss reading a field not listed here turns non-finite instead of
+# training on zeros
+_READ = {
+    "dual": ("rgb_full", "depth_s", "rgb_d", "depth_d", "weights_d", "dynamicness"),
+    "dyn": ("weights_d",),
+    "stat_out": ("rgb_s", "depth_s", "weights_s"),
+    "stat": (),
+}
+
+
+def _run_passes(params, S: StepStatics, aabb, specs, packs):
+    """The passes' results for the whole batch. On a data mesh each pass's
+    samples are drawn for the whole batch (the same draws on every rank),
+    each rank evaluates its span of the rays, and the outputs the losses
+    read are gathered in one collective (gather_rows: the rank's rows of the
+    cotangent × W in the backward). The field evaluations' sample points
+    and z values are the whole batch's samples themselves; their weights
+    are gathered for the static-only passes, the one place a loss reads
+    them; their other fields are None."""
+    if S.mesh is None:
+        return _run_local(params, S, aabb, specs, packs)
+    samp, local = {}, {}
+    for n in _pass_order(specs):
+        sp = specs[n]
+        samp[n] = _unpack_samp(sp.samp) if sp.samp is not None else sample_xyz(
+            sp.rays, S.n_samples, S.ray_type, S.static_cfg.near_far, aabb, S.step_size,
+            sp.gen, det_jitter=S.golden_det,
+        ) + (None,)
+        a, b = _span(S, sp.rays.shape[0])
+        local[n] = sp._replace(rays=sp.rays[a:b], ts=sp.ts[a:b], gen=None,
+                               samp=tuple(x[a:b] for x in samp[n] if x is not None))
+    res = _run_local(params, S, aabb, {n: local[n] for n in specs}, packs)
+
+    parts, where = [], []
+    for n in specs:
+        out, st, _, _ = res[n]
+        mode = specs[n].mode
+        for f in _READ[mode]:
+            parts.append(getattr(out, f))
+            where.append((n, f))
+        if mode == "stat":
+            parts.append(st.weights)
+            where.append((n, "weights"))
+    full = dict(zip(where, gather_rows_packed(parts, mesh_group(S.mesh))))
+
+    out = {}
+    for n, sp in specs.items():
+        xyz, z_vals = samp[n][0], samp[n][1]
+        R, nS = z_vals.shape
+        ev = FieldEval(blending=None, pts_ref=xyz, weights=full.get((n, "weights")),
+                       xyz_prime=None, rgb=None, sigma=None, z_vals=z_vals, dists=None)
+        filled = {f: full[(n, f)] for f in _READ[sp.mode]}
+        ro = (None if sp.mode == "stat" else
+              _partial_outputs(z_vals, R, nS, debug_nan=True, **filled))
+        out[n] = (ro, ev if sp.mode != "dyn" else None, ev if sp.mode in ("dual", "dyn") else None,
+                  z_vals)
+    return out
+
+
+def _per_ray(S: StepStatics, fn, *xs):
+    """fn over the batch's rays (leading dim): on a data mesh each rank
+    evaluates its span and the outputs are gathered (gather_rows)."""
+    if S.mesh is None:
+        return fn(*xs)
+    a, b = _span(S, xs[0].shape[0])
+    return tuple(gather_rows_packed(list(fn(*(x[a:b] for x in xs))), mesh_group(S.mesh)))
 
 
 def train_loss(
@@ -679,14 +795,16 @@ def train_loss(
     # compaction the regularisers (small/smooth, below) keep the dense
     # domain: the flow MLP runs at all S dense points, and only the kept
     # samples feed the induced flows (aligned with the compacted weights_d)
+    def scene_flow(pts, ts):
+        return dyn_field.scene_flow(params["dynamic"], pts, ts, aabb)
+
     if sf_idx is not None:
-        sf_reg_f, sf_reg_b = dyn_field.scene_flow(params["dynamic"], sf_pts_dense, ts_train, aabb)
+        sf_reg_f, sf_reg_b = _per_ray(S, scene_flow, sf_pts_dense, ts_train)
         pick = sf_idx[..., None].expand(-1, -1, 3)
         scene_flow_f = torch.gather(sf_reg_f, 1, pick)
         scene_flow_b = torch.gather(sf_reg_b, 1, pick)
     else:
-        scene_flow_f, scene_flow_b = dyn_field.scene_flow(
-            params["dynamic"], dnA.pts_ref, ts_train, aabb)
+        scene_flow_f, scene_flow_b = _per_ray(S, scene_flow, dnA.pts_ref, ts_train)
         sf_reg_f, sf_reg_b = scene_flow_f, scene_flow_b
 
     # RGB losses (train.py:1323-1335)
@@ -981,18 +1099,30 @@ class TrainStep:
         its gradient over A into `.grad`, zeroed once per step, and the
         metrics are the mean over the micro-batches (the JAX package's
         scan). Each micro-batch builds its own gather tables, so only one
-        micro-batch's graph is alive at a time."""
-        for _, t in named_leaves(params):
+        micro-batch's graph is alive at a time.
+
+        On a data mesh every rank takes the same global batch: micro-batch i
+        is the global micro-batch i, split over the ranks inside the passes.
+        The sharded grids are gathered into a working copy once per step;
+        after the last micro-batch's backward every gradient is averaged
+        over the ranks (parallel/mesh.sync_gradients), and a sharded grid's
+        `.grad` (and its entry in the returned tree) is its shard's."""
+        S = self.S
+        work = params if S.mesh is None else working_copy(params, S.grid_dims,
+                                                          mesh_group(S.mesh))
+        for _, t in named_leaves(work):
             t.grad = None
-        A = max(1, int(self.S.grad_accum))
+        A = max(1, int(S.grad_accum))
         metrics: Dict[str, Any] = {}
         for ri, rr in zip(ray_idx.reshape(A, -1), ray_idx_rand.reshape(A, -1)):
-            total, m = train_loss(params, self.S, aabb, data, ri, rr, gen, sc)
+            total, m = train_loss(work, S, aabb, data, ri, rr, gen, sc)
             (total / A if A > 1 else total).backward()
             for k, v in m.items():
                 v = v.detach() if torch.is_tensor(v) else v
                 metrics[k] = v if A == 1 else metrics.get(k, 0.0) + v / A
             del total, m
+        if S.mesh is not None:
+            sync_gradients(params, work, S.grid_dims, mesh_group(S.mesh))
         grads = _tree_map(lambda t: t.grad if t.grad is not None else torch.zeros_like(t), params)
         return grads, metrics
 

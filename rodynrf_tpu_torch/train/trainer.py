@@ -15,10 +15,16 @@ restarts the optimizers and replays the schedule. The step's memory
 options follow the JAX trainer's auto rules: gradient accumulation
 (`--grad_accum`, 0 = 4 micro-batches when N_voxel_final > 500³),
 rematerialization (`--remat auto|on|off`) and, with `--fused_passes 1`,
-the passes per batched dynamic evaluation. What the port lacks is refused
-with NotImplementedError rather than ignored, naming the ROADMAP.md queue 1
-item that brings it: sharded grids, the table-gradient routes other than
-the kernels, and more than one device.
+the passes per batched dynamic evaluation.
+
+In a started process group (one process per card: cli.py spawns them for
+`--n_devices`, or torchrun) the trainer trains over the group's 1-D data
+mesh (parallel/mesh.py): every rank holds the same state, takes the same
+batches and draws, evaluates its span of the rays and computes the same
+loss; `--shard_grids 1` keeps the plane grids and their Adam moments
+sharded at rest. Occupancy masks and bucket sizes are decided on rank 0
+and broadcast. The table-gradient routes other than the kernels are
+refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,7 +41,13 @@ from ..data.scene import SceneData, default_focal
 from ..fields import FieldConfig, cal_n_samples, n_to_reso
 from ..fields import dynamic as dyn_field
 from ..fields import static as stat_field
-from ..fields.alpha_mask import build_dual_alpha_mask, dilate_occupancy, occupancy_nearest
+from ..fields.alpha_mask import (
+    AlphaGridMask,
+    build_dual_alpha_mask,
+    dilate_occupancy,
+    occupancy_nearest,
+)
+from ..parallel import mesh as pmesh
 from ..render.sampling import sample_xyz
 from .checkpoints import load_checkpoint, save_checkpoint
 from .convert import params_from_numpy, params_to_numpy
@@ -65,26 +77,40 @@ def init_pose_params(scene: SceneData, n_cams: int) -> np.ndarray:
     return init
 
 
-# the ROADMAP.md queue 1 item that brings what the port refuses
-PARALLELISM = "ROADMAP.md queue 1, item 4: parallelism"
-
-
 def not_ported(what: str, item: str = "ROADMAP.md"):
     raise NotImplementedError(f"{what} is not ported to rodynrf_tpu_torch yet ({item})")
 
 
-def _refuse_unported(args, device: torch.device):
+def _refuse_unported(args):
     """NotImplementedError for every option the port does not implement."""
-    if int(getattr(args, "shard_grids", 0)):
-        not_ported("--shard_grids 1", PARALLELISM)
     if getattr(args, "grad_impl", "autodiff") != "autodiff":
         not_ported(f"--grad_impl {args.grad_impl} (the port's table gradients are the "
                    "coalesce and segment-sum kernels)")
+
+
+def _data_mesh(args, device: torch.device):
+    """The data mesh of this process's trainer: the started process group's
+    ranks unless --n_devices 1; None without a group. A trainer is one
+    process: more devices than one need one process each (cli.py spawns
+    them, or torchrun starts them)."""
+    import torch.distributed as dist
+
     n_dev = int(getattr(args, "n_devices", 0))
-    if n_dev == 0 and device.type == "cuda":
-        n_dev = torch.cuda.device_count()
-    if n_dev > 1:
-        not_ported(f"data parallelism over {n_dev} devices; pass --n_devices 1", PARALLELISM)
+    if not (dist.is_available() and dist.is_initialized()):
+        if n_dev > 1:
+            raise ValueError(f"--n_devices {n_dev} trains one process per device: start it "
+                             "with python -m rodynrf_tpu_torch (cli.main) or torchrun")
+        return None
+    if n_dev == 1:
+        return None
+    world = dist.get_world_size()
+    if n_dev not in (0, world):
+        raise ValueError(f"--n_devices {n_dev} in a process group of {world} ranks")
+    if int(args.batch_size) % world:
+        raise ValueError(f"batch_size {args.batch_size} does not divide over the {world} ranks "
+                         "of the process group; start a divisor of it (cli.main takes the "
+                         "largest) or pick a batch_size divisible by the rank count")
+    return pmesh.make_mesh(world, device=device.type)
 
 
 class Trainer:
@@ -93,7 +119,11 @@ class Trainer:
 
     def __init__(self, args, scene: SceneData, device="cuda"):
         self.device = check_device(device)
-        _refuse_unported(args, self.device)
+        _refuse_unported(args)
+        self.mesh = _data_mesh(args, self.device)
+        self.rank = self.mesh.get_local_rank() if self.mesh is not None else 0
+        # ((leaf path, axis), ...) of the plane grids sharded at rest
+        self.grid_dims = ()
         self.args = args
         self.scene = scene
         # one CPU generator for the init and every per-step draw (jitter,
@@ -139,6 +169,10 @@ class Trainer:
             "pose": torch.from_numpy(init_pose_params(scene, args.N_voxel_t)),
             "fov": torch.full((1, 1), 30.0 / 180.0 * np.pi),
         }
+        self.data = {
+            k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            for k, v in scene.device_arrays().items()
+        }
         self.set_params(params)
 
         if args.lr_decay_iters > 0:
@@ -162,11 +196,6 @@ class Trainer:
         )
         self.sampler = PermutationSampler(scene.n_rays, args.batch_size, args.seed)
         self.sampler2 = PermutationSampler(scene.n_rays, args.batch_size, args.seed + 1)
-
-        self.data = {
-            k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-            for k, v in scene.device_arrays().items()
-        }
         self.focal_fixed = float(scene.focal if scene.focal is not None else default_focal(W, H))
         self.iteration = 0
         # occupancy mask, built at update_AlphaMask_list iterations: feeds the
@@ -187,18 +216,40 @@ class Trainer:
         self._refresh_app_frac()
         self.step_fn = make_train_step(self._statics(), device=self.device)
         S = self.step_fn.S
-        print(f"memory policies: grad_accum {S.grad_accum}, remat {'on' if S.remat else 'off'}, "
-              f"fused_passes {int(S.fused_passes)}, pass_chunk {S.pass_chunk}")
+        self._print(f"memory policies: grad_accum {S.grad_accum}, remat "
+                    f"{'on' if S.remat else 'off'}, fused_passes {int(S.fused_passes)}, "
+                    f"pass_chunk {S.pass_chunk}")
+
+    def _print(self, *a):
+        """print on rank 0 only."""
+        if self.rank == 0:
+            print(*a)
+
+    def full_params(self):
+        """The parameter tree {static, dynamic, pose, fov} with every sharded
+        grid gathered whole (detached); the trainer's own leaves without
+        sharding. A collective under --shard_grids: every rank calls it."""
+        tree = {k: self.params[k] for k in ("static", "dynamic", "pose", "fov")}
+        if not self.grid_dims:
+            return tree
+        return pmesh.gather_full(tree, self.grid_dims, pmesh.mesh_group(self.mesh))
 
     def save_full(self, path: str):
         """Write a full training checkpoint: parameters, every Adam's moments
         and step counts, the generator's state, and both samplers' ids,
         cursors and numpy states. A run resumed from it continues the exact
         trajectory (the reference's resume restarts the static model and all
-        optimizers, train.py:896-901)."""
+        optimizers, train.py:896-901). On a data mesh every rank calls it:
+        sharded grids and moments are gathered whole, rank 0 writes the
+        file a replicated run writes, and the ranks meet at a barrier."""
+        if self.grid_dims:
+            opt = pmesh.adam_states_full(self.opt_state, self.params, self.grid_dims,
+                                         pmesh.mesh_group(self.mesh))
+        else:
+            opt = {name: _adam_state(o) for name, o in self.opt_state.items()}
         tree = {
-            "params": {k: self.params[k] for k in ("static", "dynamic", "pose", "fov")},
-            "opt": {name: _adam_state(opt) for name, opt in self.opt_state.items()},
+            "params": self.full_params(),
+            "opt": opt,
             "gen_state": self.gen.get_state().numpy(),
             "sampler_ids": np.asarray(
                 self.sampler.ids if self.sampler.ids is not None else np.zeros(0, np.int64)),
@@ -216,8 +267,11 @@ class Trainer:
             "compact_k": self.compact_k,
             "compact_flat": self.compact_flat,
         }
-        save_checkpoint(path, tree, self.static_cfg, self.dynamic_cfg, self.aabb, extra=extra,
-                        alpha_mask=self.alpha_mask)
+        if self.rank == 0:
+            save_checkpoint(path, tree, self.static_cfg, self.dynamic_cfg, self.aabb,
+                            extra=extra, alpha_mask=self.alpha_mask)
+        if self.mesh is not None:
+            pmesh.barrier(self.mesh)
 
     def _resume(self, ckpt_path: str):
         """Resume from a native checkpoint. A full one (`save_full`, this
@@ -240,7 +294,7 @@ class Trainer:
         self.static_cfg = static_cfg
         self.dynamic_cfg = dynamic_cfg
         self.aabb = torch.as_tensor(aabb, dtype=torch.float32, device=self.device)
-        self.set_params(params["params"] if full else params)
+        self.set_params(params["params"] if full else params, place=False)
         self.iteration = int(extra.get("iteration", 0))
         self.n_samples = min(
             self.args.nSamples, cal_n_samples(static_cfg.grid_size, self.args.step_ratio))
@@ -253,6 +307,7 @@ class Trainer:
                 samp.ids = ids if ids.size else None
                 samp.curr = int(extra[f"{name}_curr"])
                 samp.rng.bit_generator.state = extra[f"{name}_rng"]
+        self._place()
         # replay the schedule (the upsample ends iteration i when i is in
         # upsamp_list, reference train.py:2582)
         for i in range(self.iteration):
@@ -265,11 +320,26 @@ class Trainer:
             return int(extra["compact_k"]), int(extra["compact_flat"])
         return None
 
-    def set_params(self, params):
+    def set_params(self, params, place: bool = True):
         """Adopt a parameter tree (moved to this trainer's device as f32
-        leaves that require grad) with fresh optimizers."""
+        leaves that require grad) with fresh optimizers, placed on the data
+        mesh (`_place`) unless `place` is False."""
         self.params = params_from_numpy(params_to_numpy(params), self.device)
         self.opt_state = init_opt_state(self.params)
+        self.grid_dims = ()
+        if place:
+            self._place()
+
+    def _place(self):
+        """On a data mesh: rank 0's parameters on every rank, and with
+        --shard_grids 1 the plane grids and their Adam moments cut to this
+        rank's slices (parallel/mesh.shard_train_inputs)."""
+        if self.mesh is None:
+            return
+        self.params, self.opt_state, self.aabb, self.data, self.grid_dims = \
+            pmesh.shard_train_inputs(self.mesh, self.params, self.opt_state, self.aabb,
+                                     self.data, shard_grids=bool(int(
+                                         getattr(self.args, "shard_grids", 0))))
 
     def _statics(self) -> StepStatics:
         a = self.args
@@ -311,6 +381,8 @@ class Trainer:
             fused_passes=bool(int(getattr(a, "fused_passes", 0))),
             pass_chunk=self._pass_chunk(),
             grad_accum=self._grad_accum(),
+            mesh=self.mesh,
+            grid_dims=self.grid_dims,
         )
 
     # The three policies below are the JAX trainer's, rule for rule
@@ -320,13 +392,14 @@ class Trainer:
     def _grad_accum(self) -> int:
         """Micro-batch count: explicit --grad_accum, else 4 on the
         640³-class schedules (N_voxel_final > 500³), 1 otherwise, raised
-        until it divides the batch."""
+        until the micro-batch divides over the data mesh."""
         a = int(getattr(self.args, "grad_accum", 0))
         if a > 0:
             return a
+        n_dev = self.mesh.size() if self.mesh is not None else 1
         need = 4 if int(self.args.N_voxel_final) > 500 ** 3 else 1
-        while int(self.args.batch_size) % need:
-            need += 1
+        while int(self.args.batch_size) % (need * n_dev):
+            need += 1  # micro size must stay device-divisible
         return need
 
     def _gather_row_bytes(self) -> tuple:
@@ -377,11 +450,11 @@ class Trainer:
                 return {k: v.meta["layout"] for k, v in packed.items()}
             return packed.meta["layout"]
 
+        params = self.full_params()
         with torch.no_grad():
             return {
-                "static": layout(stat_field.pack_tables(self.params["static"], self.static_cfg)),
-                "dynamic": layout(dyn_field.pack_tables(self.params["dynamic"],
-                                                        self.dynamic_cfg)),
+                "static": layout(stat_field.pack_tables(params["static"], self.static_cfg)),
+                "dynamic": layout(dyn_field.pack_tables(params["dynamic"], self.dynamic_cfg)),
             }
 
     def run_step(self) -> Dict[str, torch.Tensor]:
@@ -442,15 +515,25 @@ class Trainer:
         (reference updateAlphaMask contract, tensorBase.py:591-629; dual-max
         semantics, fields/alpha_mask.build_dual_alpha_mask). With
         --compact_train, also (re)sizes and enables the step's compaction
-        against the fresh mask. Returns the occupied share of the volume."""
-        params = {"static": self.params["static"], "dynamic": self.params["dynamic"]}
-        self.alpha_mask = build_dual_alpha_mask(
-            params, self.static_cfg, self.dynamic_cfg, self.aabb.cpu().numpy(),
-            n_frames=self.scene.n_frames, thres=self.args.alpha_mask_thre,
-        )
+        against the fresh mask. Returns the occupied share of the volume.
+        On a data mesh rank 0 builds the mask and broadcasts it."""
+        params = self.full_params()
+        mask = None
+        if self.rank == 0:
+            mask = build_dual_alpha_mask(
+                params, self.static_cfg, self.dynamic_cfg, self.aabb.cpu().numpy(),
+                n_frames=self.scene.n_frames, thres=self.args.alpha_mask_thre,
+            )
+        if self.mesh is not None:
+            mask = AlphaGridMask(*(
+                pmesh.broadcast_from_first(self.mesh, None if mask is None else t, t_dtype,
+                                           self.device)
+                for t, t_dtype in zip((None, None) if mask is None else mask,
+                                      (torch.float32, torch.uint8))))
+        self.alpha_mask = mask
         occ = float(self.alpha_mask.alpha_volume.float().mean())
-        print(f"alpha mask updated: grid {tuple(self.alpha_mask.alpha_volume.shape)} "
-              f"occupancy {occ:.3f}")
+        self._print(f"alpha mask updated: grid {tuple(self.alpha_mask.alpha_volume.shape)} "
+                    f"occupancy {occ:.3f}")
         if int(getattr(self.args, "compact_train", 0)):
             self._enable_train_compaction()
         return occ
@@ -475,7 +558,18 @@ class Trainer:
         time per ray, as the shared A/B/E geometry uses) plus 4 batch sigma,
         × margin, rounded up to 8. The random times come from
         np.random.default_rng(0), as in the JAX package, so both packages
-        size the same buckets from the same scene and weights."""
+        size the same buckets from the same scene and weights. On a data mesh
+        rank 0 probes and broadcasts (K, F)."""
+        if self.mesh is not None:
+            kf = torch.as_tensor(self._probe_compact_k_here(stride, margin, quantum)
+                                 if self.rank == 0 else (0, 0), dtype=torch.int64)
+            kf = pmesh.broadcast_from_first(self.mesh, kf if self.rank == 0 else None,
+                                            torch.int64, self.device)
+            return int(kf[0]), int(kf[1])
+        return self._probe_compact_k_here(stride, margin, quantum)
+
+    def _probe_compact_k_here(self, stride: int, margin: float, quantum: int) -> tuple:
+        """_probe_compact_k on this process's own computation."""
         H, W, T = self.H, self.W, self.args.N_voxel_t
         S = self._statics()
         vol_d = self._dilated_volume()
@@ -491,6 +585,7 @@ class Trainer:
             else:
                 focal = self.aabb.new_tensor(self.focal_fixed)
             poses = pose_to_mtx(self.params["pose"])
+            S = dataclasses.replace(S, mesh=None)
             for t in range(T):
                 idx = torch.as_tensor(t * H * W + pix, device=self.device)
                 ts_rand = torch.as_tensor(rng.choice(all_ts, size=pix.shape[0]),
@@ -516,9 +611,9 @@ class Trainer:
         f_budget = (counts_u.mean() + 4.0 * counts_u.std() / np.sqrt(B)) * margin
         F = int(-(-f_budget // 8) * 8)
         F = min(max(F, 8), self.n_samples)
-        print(f"compaction probe: occupied mean {counts.mean():.1f} "
-              f"(union {counts_u.mean():.1f}) p{100 * q:g} {c_q:.0f} "
-              f"max {counts_u.max()} of {self.n_samples} samples/ray -> K={K} flat={F}")
+        self._print(f"compaction probe: occupied mean {counts.mean():.1f} "
+                    f"(union {counts_u.mean():.1f}) p{100 * q:g} {c_q:.0f} "
+                    f"max {counts_u.max()} of {self.n_samples} samples/ray -> K={K} flat={F}")
         return K, F
 
     def _enable_train_compaction(self, sizes=None):
@@ -532,7 +627,7 @@ class Trainer:
         if K <= 0 or K >= self.n_samples or K > 0.85 * self.n_samples:
             self.compact_k = self.compact_flat = 0
             self.alpha_shape = ()
-            print(f"train compaction disabled (K={K} of {self.n_samples})")
+            self._print(f"train compaction disabled (K={K} of {self.n_samples})")
         else:
             vol_d = self._dilated_volume()
             self.alpha_shape = tuple(int(s) for s in vol_d.shape)
@@ -544,8 +639,8 @@ class Trainer:
             else:
                 self.compact_flat = (F if int(getattr(self.args, "compact_flat", 1))
                                      and F < 0.85 * K else 0)
-            print(f"train compaction enabled: K={K} flat={self.compact_flat} "
-                  f"of {self.n_samples} samples/ray")
+            self._print(f"train compaction enabled: K={K} flat={self.compact_flat} "
+                        f"of {self.n_samples} samples/ray")
         self._build_step()
 
     def _upsample(self, iteration: int):
@@ -553,16 +648,20 @@ class Trainer:
         fields' Adam starts fresh (train.py:2606 recreates the main
         optimizer); the pose and fov Adams and their moments survive, as in
         the reference (only their lr is touched, 2592-2595). The step is
-        rebuilt for the new sample count and grid."""
+        rebuilt for the new sample count and grid. Sharded grids are gathered,
+        upsampled and sharded anew along the axes the new shapes give."""
         n_voxels = self.n_voxel_list.pop(0)
         reso = n_to_reso(n_voxels, self.scene.scene_bbox)
         self.n_samples = min(self.args.nSamples, cal_n_samples(reso, self.args.step_ratio))
+        full = self.full_params()
         with torch.no_grad():
-            static = stat_field.upsample_static_field(self.params["static"], reso)
-            dynamic = dyn_field.upsample_dynamic_field(self.params["dynamic"], reso)
+            static = stat_field.upsample_static_field(full["static"], reso)
+            dynamic = dyn_field.upsample_dynamic_field(full["dynamic"], reso)
         for _, t in named_leaves((static, dynamic)):
             t.requires_grad_(True)  # the resized planes and lines: new leaves
         self.params = dict(self.params, static=static, dynamic=dynamic)
+        if self.mesh is not None and int(getattr(self.args, "shard_grids", 0)):
+            self.params, self.grid_dims = pmesh.shard_params(self.mesh, self.params)
         self.static_cfg = self.static_cfg.with_grid(reso)
         self.dynamic_cfg = self.dynamic_cfg.with_grid(reso)
         self.schedule.on_upsample(iteration)

@@ -15,9 +15,8 @@ at the golden fixture's size (4 frames of 24×32, golden/tiny.txt).
   evaluation's PSNRs exactly; --alpha_mask <npz> of the same mask gives
   them too with --compact_eval 1, and renders the dense masked path with
   --compact_eval 0.
-- What the port does not have yet is refused with NotImplementedError
-  naming its ROADMAP item: --shard_grids 1. `python -m rodynrf_tpu_torch`
-  refuses without a card.
+- `python -m rodynrf_tpu_torch` refuses without a card. Training over
+  several processes (--n_devices, --shard_grids): test_torch_parallel_cli.py.
 """
 
 import os
@@ -161,16 +160,6 @@ def test_memory_options_through_the_cli(run, capsys):
     assert len(rep["losses"]) == 2 and all(np.isfinite(rep["losses"]))  # every 2nd of 4
     assert "grad_accum 2, remat off, fused_passes 1" in capsys.readouterr().out
     assert (tmp / "log" / "fused" / "fused.npz").is_file()
-
-
-@pytest.mark.parametrize("extra,match", [
-    (("--shard_grids", "1"), "shard_grids"),
-])
-def test_unported_options_are_refused(run, extra, match):
-    tmp, _ = run
-    with pytest.raises(NotImplementedError, match=match) as e:
-        main(_argv(tmp, *extra), device="cpu")
-    assert "ROADMAP.md queue 1, item" in str(e.value)
 
 
 def test_module_entry_refuses_without_a_card():

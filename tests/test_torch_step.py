@@ -229,11 +229,14 @@ def test_float32_error_sits_in_the_dynamic_field_evaluation(step_pair, monkeypat
 
 
 @pytest.mark.parametrize("flag", [
-    "--n_devices 2", "--ckpt some.npz", "--grad_impl csum", "--shard_grids 1",
+    "--n_devices 2", "--ckpt some.npz", "--grad_impl csum",
 ])
 def test_unported_options_raise(flag):
-    # resuming is ported: a checkpoint that is not there is a missing file
-    error = FileNotFoundError if flag.startswith("--ckpt") else NotImplementedError
+    # resuming is ported: a checkpoint that is not there is a missing file;
+    # a trainer is one process, so more devices than one need a process
+    # group (cli.main spawns one, tests/test_torch_parallel*.py run it)
+    error = {"--ckpt": FileNotFoundError, "--n_devices": ValueError}.get(
+        flag.split()[0], NotImplementedError)
     with pytest.raises(error):
         TTrainer(tparse(tiny_cmd("ndc", 1) + " " + flag), ttiny_scene("ndc"), device="cpu")
 

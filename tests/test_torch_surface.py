@@ -34,6 +34,7 @@ import rodynrf_tpu_torch.core as tcore
 import rodynrf_tpu_torch.eval as teval
 import rodynrf_tpu_torch.fields as tfields
 import rodynrf_tpu_torch.ops as tops
+import rodynrf_tpu_torch.parallel as tparallel
 import rodynrf_tpu_torch.render as trender
 import rodynrf_tpu_torch.train as ttrain
 from rodynrf_tpu_torch.core import rays_extra as trx
@@ -79,12 +80,13 @@ def both(fn_t, fn_j, *arrays, **kw):
             fn_j(*[jnp.asarray(a) for a in arrays], **kw))
 
 
-@pytest.mark.parametrize("pkg", ["core", "ops", "render", "fields", "train", "eval"])
+@pytest.mark.parametrize("pkg", ["core", "ops", "render", "fields", "train", "eval",
+                                 "parallel"])
 def test_exports_match_jax(pkg):
     """Each subpackage exports the JAX package's public names."""
     jax_mod = __import__(f"rodynrf_tpu.{pkg}", fromlist=["_"])
     port = {"core": tcore, "ops": tops, "render": trender, "fields": tfields, "train": ttrain,
-            "eval": teval}[pkg]
+            "eval": teval, "parallel": tparallel}[pkg]
     names = [n for n in vars(jax_mod) if not n.startswith("_")
              and not isinstance(vars(jax_mod)[n], type(jcore))]
     missing = [n for n in names if not hasattr(port, n)]
