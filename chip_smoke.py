@@ -6,8 +6,8 @@
 Phases (any failure raises and the script exits non-zero, printing no
 result):
   1. the card: name and power limit from nvidia-smi, torch's device name;
-  2. build every CUDA kernel of the train step from csrc/ (one nvcc per
-     source, started together), with the build time;
+  2. build every CUDA kernel from csrc/ (the train step's and the JPEG
+     decoder's; one nvcc per source, started together), with the build time;
   3. hold each kernel to its plain PyTorch version on the card, at the
      shapes the train step gives it, on inputs made from the step's own
      sample points: the coalesce kernel at the six strided table-gradient
@@ -166,12 +166,35 @@ result):
          beside float32's; steady ms/step, rays/s, rank 0's peak; then one
          640³ step with --shard_grids 1 at the recipe's auto grad_accum. On
          one card a line says it was not run and why;
+  14. (before 13) configs/DAVIS.txt from JPEG frames: a DAVIS-layout scene
+     of 8 frames at 1920×1080 written as baseline 4:2:0 JPEG (quality 90,
+     `testing.write_jpeg`, from the synthetic scene's frames);
+     14a. the JPEG kernels (csrc/jpeg_entropy.cu, csrc/jpeg_idct.cu) against
+         their plain versions on the CPU, bit for bit (blocks, status words,
+         planes, pixels): the committed fixtures (tests/data/jpeg) as one
+         batch, one frame, the same frame re-encoded with a restart marker
+         every 8 MCUs; each kernel's ms (CUDA events), the plain versions'
+         CPU ms, each kernel's byte bound; then the 8 frames as one batch
+         (`decode_jpegs` end to end, and each kernel);
+     14b. `preprocess flow | depth --out_dir dpt | mask`, each with --zfill 5,
+         from phase 11's kind of random checkpoints: flow and depth read the
+         frames as one batch through the kernels (one launch of each);
+     14c. `cli.main` of the recipe at its 16³ start on 14b's products with
+         --downsample_train 2 (960×540 rays; every frame decoded by the
+         kernels, resized by pil_resize): 3 steps, the evaluation of the 8
+         frames, the checkpoint, then --render_only from it with the same
+         PSNRs; then one more scene load and a trainer's 2 warm + 3 timed
+         steps on it at 16³ and at 256³ (--N_voxel_init 16777216,
+         --render_test 0): finite losses, launch
+         counts equal to launches per step × steps for the layouts auto
+         chose, `main_path` lines `davis_cli`, `davis_16`, `davis_256`, one
+         `davis` JSON line;
   6. (printed last) a `main_path` JSON line per path, one JSON line of
      kernels, the nvidia-smi line, and the result line.
 
 `python3 chip_smoke.py --kernels-only` runs phases 1-3 alone and prints the
 cases as one `kernel_cases` JSON line; `python3 chip_smoke.py
---parallel-only` runs phases 1, 2 and 13.
+--parallel-only` runs phases 1, 2 and 13; `--davis-only` phases 1, 2 and 14.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -266,6 +289,17 @@ DP_ALLREDUCE_REPS = 20
 # step to) and Adam's first updates follow the gradients' signs
 MULTI_LOSS_RTOL, MULTI_OWN_FACTOR = 1e-5, 4.0
 CONFIG_MULTI = {"f32_strided": ["--bf16", "0", "--vm_layout", "strided"], "default": []}
+# phase 14: configs/DAVIS.txt (contract rays, fea_pe 6, time-embedded static
+# shading, its 16³ -> 256³ grid) on a DAVIS-layout scene of baseline JPEG
+# frames at DAVIS's 1080p, preprocessed on the card; the JPEG kernels
+DAVIS_RECIPE = ["--config", str(Path(__file__).resolve().parent / "configs" / "DAVIS.txt")]
+DAVIS_SCENE = dict(T=8, H=1080, W=1920)
+DAVIS_QUALITY, DAVIS_RESTART = 90, 8  # write_jpeg's quality; MCUs per restart interval
+DAVIS_CLI_STEPS, DAVIS_WARM, DAVIS_TIMED = 3, 2, 3
+DAVIS_VOXELS_256 = "16777216"  # 256³, the recipe's N_voxel_final
+JPEG_SOURCES = ("jpeg_entropy", "jpeg_idct")
+JPEG_KERNELS = ("jpeg_entropy", "jpeg_idct", "jpeg_color")
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
 
 
 def log(*a):
@@ -1156,7 +1190,7 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
 
         args = config_parser(argv + ["--ckpt", rep["ckpt"], "--n_iters", str(CLI_STEPS + 1)])
         t0 = time.time()
-        tr = Trainer(args, load_scene(args), device=device)
+        tr = Trainer(args, load_scene(args, device), device=device)
         resume_s = time.time() - t0
         if tr.iteration != CLI_STEPS:
             raise AssertionError(f"resumed at iteration {tr.iteration}, not {CLI_STEPS}")
@@ -1324,7 +1358,7 @@ def drive_mesh_lpips(argv, ckpt: str, logdir: Path, grid, smi: str, device: str 
     wdir = Path(tempfile.mkdtemp(prefix="lpips_", dir=logdir))
     for seed, net in enumerate(("alex", "vgg")):
         write_lpips_dump(wdir / f"lpips_{net}.pth", net, seed)
-    scene = load_scene(config_parser(argv))
+    scene = load_scene(config_parser(argv), device)
     frames = [read_png(str(logdir / "cli" / "imgs_test_all" / f"{i:03d}.png")).astype(np.float32)
               / 255.0 for i in range(len(scene.rgbs_stack))]
     saved = os.environ.get("LPIPS_WEIGHTS_DIR")
@@ -1499,7 +1533,7 @@ def _preprocess_and_train(scene: Path, smi: str, per_step: dict, device: str):
             *ONE_BATCH]
     args = config_parser(argv)
     t0 = time.time()
-    sc = load_scene(args)
+    sc = load_scene(args, device)
     load_s = time.time() - t0
     if not (np.isfinite(sc.flows_f).all() and np.isfinite(sc.disps).all()):
         raise AssertionError("the loaded preprocessed scene is not finite")
@@ -2342,10 +2376,318 @@ def drive_multi_card(smi: str):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the DAVIS recipe from JPEG frames
+# ---------------------------------------------------------------------------
+
+
+def jpeg_counters():
+    from rodynrf_tpu_torch.ops import jpeg
+
+    return {k: getattr(jpeg, k).launches for k in JPEG_KERNELS}
+
+
+def reset_jpeg_counters():
+    from rodynrf_tpu_torch.ops import jpeg
+
+    for k in JPEG_KERNELS:
+        getattr(jpeg, k).launches = 0
+
+
+def jpeg_bytes(host) -> dict:
+    """Bytes each JPEG kernel must move for a batch (each input read once,
+    each output written once): entropy reads the compressed bytes, the
+    segment list and its frames' Huffman tables and writes the int16
+    blocks; the IDCT reads the blocks and quantisers and writes the planes;
+    the colour pass reads the planes and writes 3 bytes a pixel."""
+    tables = host.huff.numel() * 4 + host.scan.numel() * 4 + host.seg.numel() * 4
+    blocks = host.n_blocks * 128
+    return {"jpeg_entropy": host.data.numel() + tables + blocks,
+            "jpeg_idct": blocks + host.quant.numel() * 4 + host.n_plane_bytes,
+            "jpeg_color": host.n_plane_bytes + host.n_pixels * 3}
+
+
+def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20)) -> dict:
+    """14a: a batch of frames through the three kernels and through their
+    plain versions on the CPU, equal bit for bit (blocks, status words,
+    planes, pixels); each kernel's time for the batch and per frame (CUDA
+    events, `reps` windows × launches), the plain versions' CPU time, each
+    kernel's byte bound."""
+    from rodynrf_tpu_torch.data import jpeg as J
+    from rodynrf_tpu_torch.ops import jpeg as K
+
+    host = J.pack([J.read_jpeg(str(p)) for p in paths])
+    dev = host.to(device)
+    plain_ms = {}
+    t0 = time.perf_counter()
+    coef_p, st_p = J.entropy_decode_plain(host)
+    plain_ms["jpeg_entropy"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    planes_p = J.idct_plain(coef_p, host)
+    plain_ms["jpeg_idct"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rgb_p = J.color_plain(planes_p, host)
+    plain_ms["jpeg_color"] = 1e3 * (time.perf_counter() - t0)
+    if st_p.any():
+        raise AssertionError(f"[14a] {label}: the plain decode flags a corrupt segment")
+    coef, st = K.jpeg_entropy(dev)
+    planes = K.jpeg_idct(coef, dev)
+    rgb = K.jpeg_color(planes, dev)
+    for name, a, b in (("blocks", coef, coef_p), ("status", st, st_p),
+                       ("planes", planes, planes_p), ("pixels", rgb, rgb_p)):
+        a = a.cpu()
+        if a.shape != b.shape or not torch.equal(a, b):
+            n = int((a != b).sum()) if a.shape == b.shape else -1
+            raise AssertionError(f"[14a] {label}: the kernels' {name} differ from the plain "
+                                 f"versions' ({n} elements)")
+    nbytes = jpeg_bytes(host)
+    case = {"case": label, "frames": len(paths), "pixels": host.n_pixels,
+            "blocks": host.n_blocks, "segments": int(host.seg.shape[0]),
+            "compressed_bytes": int(host.data.numel()), "max_abs_err": 0,
+            "plain_cpu_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": {k: 1e3 * v / HBM_BYTES_PER_S for k, v in nbytes.items()}}
+    if device == "cuda":
+        windows, n = reps
+        case["ms"] = {
+            "jpeg_entropy": median_ms(lambda: K.jpeg_entropy(dev), windows, n)[0],
+            "jpeg_idct": median_ms(lambda: K.jpeg_idct(coef, dev), windows, n)[0],
+            "jpeg_color": median_ms(lambda: K.jpeg_color(planes, dev), windows, n)[0]}
+        case["ms_per_frame"] = {k: v / len(paths) for k, v in case["ms"].items()}
+    log(f"[14a] {label}: {len(paths)} frames, {host.n_pixels} pixels, "
+        f"{case['segments']} segments, {case['compressed_bytes']} compressed bytes: kernels = "
+        f"plain versions bit for bit; kernel ms {case.get('ms')}, bound ms "
+        f"{case['bound_ms']}, plain CPU ms {plain_ms}")
+    return case
+
+
+def davis_step_path(tr, path: str, smi: str, load_launches=None):
+    """DAVIS_WARM + DAVIS_TIMED steps of a trainer with the counts set to 0
+    before them (`load_launches`: the JPEG launches of the scene load that
+    just preceded, counted into this path's record; none for a trainer on
+    an already loaded scene), launches checked against the layouts auto
+    chose. Returns the `main_path` record."""
+    S = tr.step_fn.S
+    layouts = tr.table_layouts()
+    per_step = launches_per_step(S, layouts)
+    n = DAVIS_WARM + DAVIS_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    run_steps(tr, DAVIS_WARM, f"{path} warm")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    run_steps(tr, DAVIS_TIMED, f"{path} timed")
+    step_s = (time.time() - t0) / DAVIS_TIMED
+    launches = {**counters(), **(load_launches or {k: 0 for k in JPEG_KERNELS})}
+    peak = torch.cuda.max_memory_allocated()
+    for k in KERNELS:
+        if launches[k] != per_step[k] * n:
+            raise AssertionError(f"{path}: {k} launches {launches[k]} != {per_step[k]} x {n}")
+    record = {"path": path, "layouts": layouts, "grid": list(S.static_cfg.grid_size),
+              **policies(S), "n_samples": S.n_samples, "ms_per_step": step_s * 1e3,
+              "rays_per_s": tr.args.batch_size / step_s, "peak_gib": peak / 2**30,
+              "steps": n, "timed_steps": DAVIS_TIMED, "launches": launches,
+              "launches_per_step": per_step, "card": smi}
+    log(f"[14c] {path}: grid {record['grid']}, {S.n_samples} samples/ray, layouts {layouts}, "
+        f"{step_s * 1e3:.1f} ms/step, {record['rays_per_s']:.1f} rays/s, peak "
+        f"{peak / 2**30:.2f} GiB, launches {launches} ({smi})")
+    log(json.dumps({"main_path": record}))
+    return record
+
+
+def drive_davis(smi: str, device: str = "cuda"):
+    """Phase 14: configs/DAVIS.txt from JPEG frames. Writes a DAVIS-layout
+    scene of DAVIS_SCENE's frames as baseline 4:2:0 JPEG, then 14a the
+    kernels against their plain versions, 14b the preprocessing commands
+    (flow, depth into dpt/, masks into epipolar_error_png/, 5-digit names),
+    14c the recipe through cli.main at its 16³ start (3 steps, evaluation,
+    checkpoint, --render_only) and a trainer's timed steps at 16³ and 256³.
+    Prints the `davis` line; returns the main-path records. (`device` and
+    the module's DAVIS_* sizes let the phase be rehearsed on the CPU.)"""
+    import shutil
+    import tempfile
+
+    from rodynrf_tpu_torch.cli import main as cli_main
+    from rodynrf_tpu_torch.data import jpeg as J
+    from rodynrf_tpu_torch.data.jpeg import decode_jpegs
+    from rodynrf_tpu_torch.data.video_dataset import load_scene
+    from rodynrf_tpu_torch.ops import jpeg as K
+    from rodynrf_tpu_torch.preprocess import generate_depth
+    from rodynrf_tpu_torch.preprocess import main as preprocess
+    from rodynrf_tpu_torch.preprocess.dpt import DPTConfig
+    from rodynrf_tpu_torch.testing import write_jpeg, write_video_scene
+    from rodynrf_tpu_torch.train import Trainer, config_parser
+
+    t_phase = time.time()
+    T, H, W = DAVIS_SCENE["T"], DAVIS_SCENE["H"], DAVIS_SCENE["W"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_davis_"))
+    records = []
+    try:
+        scene = root / "scene"
+        t0 = time.time()
+        write_video_scene(str(scene), T, H, W, seed=14, layout="davis", fmt="jpg",
+                          frames_only=True)
+        write_s = time.time() - t0
+        frames = sorted((scene / "images").glob("*.jpg"))
+
+        # 14a. the kernels against their plain versions: the fixtures, the
+        # scene's frames as the one batch the loader, flow and depth decode,
+        # and one frame re-encoded with restart markers
+        fixtures = sorted(p for p in JPEG_FIXTURES.glob("*.jpg") if "progressive" not in p.name)
+        slow = (3, 2)  # windows × launches for the whole-frame cases
+        cases = [jpeg_case("fixtures", fixtures, device),
+                 jpeg_case(f"{T} frames {W}x{H} 4:2:0 q{DAVIS_QUALITY} (the loader's batch)",
+                           frames, device, slow)]
+        first = decode_jpegs(frames[:1], device)[0].cpu().numpy()
+        rst = root / "restart.jpg"
+        write_jpeg(str(rst), first, DAVIS_QUALITY, "420", DAVIS_RESTART)
+        cases.append(jpeg_case(f"{W}x{H} 4:2:0 q{DAVIS_QUALITY} restart {DAVIS_RESTART}",
+                               [rst], device, slow))
+        # decode_jpegs on the two batches (host parse + copy + kernels +
+        # status), and the kernels on the restart batch (the frames batch's
+        # are its 14a case)
+        batch = {}
+        for key, paths in (("frames", frames), ("restart", [rst] * T)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            decode_jpegs(paths, device)
+            torch.cuda.synchronize()
+            batch_s = time.time() - t0
+            host = J.pack([J.read_jpeg(str(p)) for p in paths])
+            rec = batch[key] = {"frames": T, "segments": int(host.seg.shape[0]),
+                                "decode_jpegs_s": batch_s,
+                                "decode_jpegs_ms_per_frame": 1e3 * batch_s / T}
+            if key == "frames":
+                rec["kernel_ms"] = cases[1].get("ms")
+            elif device == "cuda":
+                dev = host.to(device)
+                coef, _ = K.jpeg_entropy(dev)
+                planes = K.jpeg_idct(coef, dev)
+                rec["kernel_ms"] = {
+                    "jpeg_entropy": median_ms(lambda: K.jpeg_entropy(dev), *slow)[0],
+                    "jpeg_idct": median_ms(lambda: K.jpeg_idct(coef, dev), *slow)[0],
+                    "jpeg_color": median_ms(lambda: K.jpeg_color(planes, dev), *slow)[0]}
+                del coef, planes, dev
+            if rec.get("kernel_ms"):
+                rec["kernel_ms_per_frame"] = {k: v / T for k, v in rec["kernel_ms"].items()}
+            log(f"[14a] {T} frames as one batch ({key}: {rec['segments']} segments): "
+                f"decode_jpegs {batch_s * 1e3:.1f} ms (host parse + copy + kernels + status), "
+                f"kernels {rec.get('kernel_ms')}")
+
+        # 14b. preprocessing on the card, every frame read through the kernels
+        ckpt = root / "ckpt"
+        ckpt.mkdir()
+        raft_path = write_raft_checkpoint(ckpt / "raft-random.pth")
+        dpt_cfg = DPTConfig(**PRE_DPT)
+        write_dpt_checkpoint(ckpt / "dpt-random.pt", dpt_cfg, device)
+        data = ["--dataset_path", str(scene), "--zfill", "5"]
+        pre = {}
+        for label, fn in (
+                ("flow", lambda: preprocess(["flow", *data, "--model", str(raft_path),
+                                             "--iters", str(PRE_ITERS),
+                                             "--long_side", str(PRE_LONG_SIDE)], device)),
+                ("depth", lambda: generate_depth.main(
+                    [*data, "--model", str(ckpt / "dpt-random.pt"), "--out_dir", "dpt"],
+                    device, dpt_cfg)),
+                ("mask", lambda: preprocess(["mask", *data], device))):
+            reset_jpeg_counters()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            rep = fn()
+            torch.cuda.synchronize()
+            pre[label] = {"command_s": time.time() - t0, "jpeg_launches": jpeg_counters(),
+                          **{k: rep[k] for k in ("read_s", "size", "f_found") if k in rep}}
+            if not rep.get("finite", True):
+                raise AssertionError(f"14b {label}: a non-finite output")
+            want = 1 if label in ("flow", "depth") else 0
+            if any(v != want for v in pre[label]["jpeg_launches"].values()):
+                raise AssertionError(f"14b {label}: JPEG launches {pre[label]['jpeg_launches']}"
+                                     f", {want} each expected (one batch per command)")
+        if not any(pre["mask"].pop("f_found")):
+            raise AssertionError("14b: LMedS accepted no fundamental matrix on any flow")
+        for sub, n in (("flow", 2 * (T - 1)), ("dpt", T), ("epipolar_error_png", T)):
+            names = sorted(p.name for p in (scene / sub).iterdir())
+            if len(names) != n or len(names[0].split(".")[0].split("_")[0]) != 5:
+                raise AssertionError(f"14b: {sub}/ holds {names[:3]}..., not {n} 5-digit files")
+        log(f"[14b] preprocessing of {T} {W}x{H} JPEG frames: {pre}")
+
+        # 14c. the recipe through the CLI at its 16³ start
+        argv = [*DAVIS_RECIPE, "--datadir", str(scene), "--basedir", str(root / "log"),
+                "--expname", "davis", "--n_iters", str(DAVIS_CLI_STEPS), "--N_voxel_t", str(T),
+                "--no_tensorboard", "1", "--render_path", "0", "--progress_refresh_rate", "1",
+                "--downsample_train", "2", *ONE_PROCESS]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        reset_jpeg_counters()
+        t0 = time.time()
+        rep = cli_main(argv, device)
+        cli_s = time.time() - t0
+        launches = {**counters(), **jpeg_counters()}
+        peak_cli = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in rep["losses"]) or len(rep["losses"]) != \
+                DAVIS_CLI_STEPS:
+            raise AssertionError(f"14c CLI: losses {rep['losses']}")
+        if len(rep["psnrs"]) != T or not all(math.isfinite(p) for p in rep["psnrs"]):
+            raise AssertionError(f"14c CLI: evaluation PSNRs {rep['psnrs']}")
+        rrep = cli_main(argv + ["--render_only", "1", "--ckpt", rep["ckpt"]], device)
+        if rrep["psnrs"] != rep["psnrs"]:
+            raise AssertionError(f"14c: render_only PSNRs {rrep['psnrs']} != the final "
+                                 f"evaluation's {rep['psnrs']}")
+
+        args16 = config_parser(argv)
+        reset_jpeg_counters()
+        t0 = time.time()
+        sc = load_scene(args16, device)
+        load_s = time.time() - t0
+        load_launches = jpeg_counters()
+        if any(v != 1 for v in load_launches.values()):
+            raise AssertionError(f"14c: the loader launched {load_launches}, one batch expected")
+        if sc.img_wh != (W // 2, H // 2) or sc.n_frames != T:
+            raise AssertionError(f"14c: the loader gave {sc.img_wh} x {sc.n_frames}")
+        tr = Trainer(args16, sc, device=device)
+        per16 = launches_per_step(tr.step_fn.S, tr.table_layouts())
+        want = {**{k: v * DAVIS_CLI_STEPS for k, v in per16.items()}, **load_launches}
+        if launches != want:
+            raise AssertionError(f"14c CLI: launches {launches} != {want}")
+        cli_record = {"path": "davis_cli", "launches": launches, "launches_per_step": per16}
+        records.append(cli_record)
+        log(json.dumps({"main_path": cli_record}))
+        records.append(davis_step_path(tr, "davis_16", smi, load_launches))
+        del tr
+        torch.cuda.empty_cache()
+
+        # 14c. the same recipe at 256³, on the same loaded scene
+        args256 = config_parser(argv + ["--N_voxel_init", DAVIS_VOXELS_256, "--render_test", "0"])
+        tr = Trainer(args256, sc, device=device)
+        records.append(davis_step_path(tr, "davis_256", smi))
+        del tr, sc
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    davis = {
+        "scene": f"{T} frames {W}x{H}, DAVIS layout, baseline 4:2:0 JPEG q{DAVIS_QUALITY} "
+                 f"(testing.write_jpeg), preprocessed on the card; trained at "
+                 f"--downsample_train 2 ({W // 2}x{H // 2})",
+        "write_s": write_s, "jpeg_cases": cases, "jpeg_batch": batch, "preprocess": pre,
+        "cli": {"main_s": cli_s, "loader_s": rep["loader_s"], "train_s": rep["train_s"],
+                "eval_s": rep["eval_s"], "losses": rep["losses"], "psnrs": rep["psnrs"],
+                "render_only_psnrs_equal": True, "peak_gib": peak_cli / 2**30,
+                "launches": launches, "load_scene_s": load_s},
+        "steps": {r["path"]: {k: r[k] for k in ("grid", "layouts", "n_samples", "ms_per_step",
+                                                "rays_per_s", "peak_gib", "launches_per_step")}
+                  for r in records if "ms_per_step" in r},
+        "phase_s": time.time() - t_phase, "card": smi,
+    }
+    log(json.dumps({"davis": davis}))
+    return records, davis
+
+
 def main() -> int:
     t_start = time.time()
     kernels_only = "--kernels-only" in sys.argv[1:]
     parallel_only = "--parallel-only" in sys.argv[1:]
+    davis_only = "--davis-only" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
@@ -2361,16 +2703,16 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    reports = cuda_build.build(KERNELS)
+    reports = cuda_build.build(KERNELS + JPEG_SOURCES)
     log(f"[build] {time.time() - t0:.1f} s (compiled: {sorted(reports) or 'none, cached'})")
     for name, rep in reports.items():
         for fn, info in ptxas_summary(rep):
             log(f"[build] {name}: {fn}: {info}")
 
     scene = make_synthetic_scene(**SCENE, ray_type=parse_cmd(" ".join(RECIPE)).ray_type)
-    if parallel_only:  # phase 13 alone
-        for rec in drive_distributed(scene, smi):
-            log(f"[13] {rec['path']}: launches {rec['launches']}")
+    if parallel_only or davis_only:  # phase 13 or phase 14 alone
+        for rec in (drive_distributed(scene, smi) if parallel_only else drive_davis(smi)[0]):
+            log(f"[{13 if parallel_only else 14}] {rec['path']}: launches {rec['launches']}")
         log(f"[done] {time.time() - t_start:.1f} s")
         log(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2454,6 +2796,11 @@ def main() -> int:
     walk, cases_640 = walk_schedule(scene, smi)
     records.append(walk)
 
+    # 14. the DAVIS recipe from JPEG frames: the JPEG kernels, preprocessing,
+    # the recipe at 16³ and 256³
+    davis_records, davis = drive_davis(smi)
+    records.extend(davis_records)
+
     # 13. the distributed step (a NCCL group of its own, torn down after)
     records.extend(drive_distributed(scene, smi))
 
@@ -2487,6 +2834,26 @@ def main() -> int:
         entry("segment_rows_sum", "segsum", "rodynrf_tpu_torch/csrc/segsum.cu",
               "rodynrf_tpu/ops/pallas_segsum.py:44", segsum),
     ]
+    frame_case = davis["jpeg_cases"][1]  # the scene's 1920×1080 4:2:0 frames as one batch
+    for name, source in (("jpeg_entropy", "jpeg_entropy.cu"), ("jpeg_idct", "jpeg_idct.cu"),
+                         ("jpeg_color", "jpeg_idct.cu")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"rodynrf_tpu_torch/csrc/{source}",
+            "replaces": "rodynrf_tpu/data/video_dataset.py:29 (PIL's libjpeg-turbo on the host; "
+                        "no TPU kernel)",
+            "launches": launches(name),
+            # only phase 14's records count JPEG launches; the others read 0
+            "launches_by_path": {r["path"]: r.get("launches", r.get("launches_after"))
+                                 .get(name, 0) for r in records},
+            "max_abs_err": max(c["max_abs_err"] for c in davis["jpeg_cases"]),
+            "ms": frame_case["ms"][name], "ms_per_frame": frame_case["ms_per_frame"][name],
+            "plain_ms": frame_case["plain_cpu_ms"][name],
+            "plain_device": "cpu", "bound_ms": frame_case["bound_ms"][name],
+            "bound_by": "bytes", "library_ms": None, "case": frame_case["case"],
+            "cases": [{k: c[k] for k in ("case", "frames", "segments", "ms", "plain_cpu_ms",
+                                         "bound_ms")} for c in davis["jpeg_cases"]],
+            "batch_ms": {k: b["kernel_ms"][name] for k, b in davis["jpeg_batch"].items()},
+        })
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was launched no time on the main paths")

@@ -46,7 +46,7 @@ from .render.renderer import make_chunk_renderer
 from .train.checkpoints import export_th, import_th, load_checkpoint, save_checkpoint
 from .train.config import config_parser
 from .train.convert import params_from_numpy
-from .train.step import check_device
+from .device import check_device
 from .train.trainer import Trainer
 from .parallel import mesh as pmesh
 
@@ -216,7 +216,7 @@ def reconstruction(args, device="cuda"):
     step began, `compaction` the step's bucket sizes at the end {k,
     flat, mask}. In a process group only rank 0 reports; the others return None."""
     t0 = time.perf_counter()
-    scene = load_scene(args)
+    scene = load_scene(args, device)
     report = {"loader_s": time.perf_counter() - t0}
     logfolder = f"{args.basedir}/{args.expname}"
 
@@ -362,7 +362,7 @@ def render_test(args, logfolder, device="cuda"):
     psnrs, frame_s, eval_s, flat_log}: flat_log the compact renderer's (N,
     occupied, R·S) per chunk."""
     dev = check_device(device)
-    scene = load_scene(args)
+    scene = load_scene(args, dev)
     ckpt_path = args.ckpt or f"{logfolder}/{args.expname}.npz"
     t0 = time.perf_counter()
     if ckpt_path.endswith(".th"):

@@ -22,8 +22,10 @@ none of those libraries, so the port carries its own:
   `resize_cubic`) and its `remap` with INTER_CUBIC and BORDER_CONSTANT 0
   (`remap_cubic`), with cv2's coefficients and edge rules.
 
-Other formats (JPEG frames) go through PIL when it can be imported and
-raise otherwise.
+Baseline JPEG frames (DAVIS ships its frames as JPEG) decode through
+data/jpeg.py, bit for bit as PIL's, as hand-written kernels on the card or
+their plain versions on the CPU (`read_frames` decodes a list of frames as
+one batch). Other formats raise, naming the file.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from ..device import check_device
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -168,21 +172,18 @@ def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
                 + _chunk(b"IEND", b""))
 
 
-def read_image_rgb(path: str) -> np.ndarray:
-    """[H, W, 3] uint8, as PIL's `Image.open(path).convert("RGB")`: gray is
-    repeated, alpha dropped. PNG needs no library; other formats need PIL."""
+def _kind(path: str) -> str:
     with open(path, "rb") as f:
-        is_png = f.read(8) == _SIG
-    if is_png:
-        img = read_png(path)
-    else:
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise RuntimeError(
-                f"{path}: only PNG images are read without PIL, which is not installed"
-            ) from e
-        return np.asarray(Image.open(path).convert("RGB"))
+        head = f.read(8)
+    if head == _SIG:
+        return "png"
+    if head[:2] == b"\xff\xd8":
+        return "jpeg"
+    raise ValueError(f"{path}: not a PNG or JPEG file (no other image format is read)")
+
+
+def _png_rgb(path: str) -> np.ndarray:
+    img = read_png(path)
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, -1)
     if img.shape[2] == 2:  # gray + alpha
@@ -190,13 +191,39 @@ def read_image_rgb(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
+def read_image_rgb(path: str, device="cuda") -> np.ndarray:
+    """[H, W, 3] uint8, as PIL's `Image.open(path).convert("RGB")`: gray is
+    repeated, alpha dropped. PNG decodes on the host; a JPEG decodes on
+    `device` (data/jpeg.decode_jpegs: the card unless the caller asks for the
+    CPU)."""
+    if _kind(path) == "png":
+        return _png_rgb(path)
+    from .jpeg import decode_jpegs
+
+    return decode_jpegs([path], device)[0].cpu().numpy()
+
+
+def read_frames(paths, device="cuda") -> list:
+    """Every frame as an [H, W, 3] uint8 tensor on `device`, as
+    `read_image_rgb` reads it: the JPEG files decoded as one batch, each file
+    once. Raises RuntimeError when the card is asked for and there is none."""
+    from .jpeg import decode_jpegs
+
+    device = check_device(device)
+    kinds = [_kind(p) for p in paths]
+    jpegs = iter(decode_jpegs([p for p, k in zip(paths, kinds) if k == "jpeg"], device))
+    return [next(jpegs) if k == "jpeg" else torch.from_numpy(_png_rgb(p)).to(device)
+            for p, k in zip(paths, kinds)]
+
+
 def image_size(path: str):
-    """(width, height) of an image file (the PNG header; PIL otherwise)."""
-    with open(path, "rb") as f:
-        head = f.read(24)
-    if head[:8] == _SIG:
-        return struct.unpack(">II", head[16:24])
-    return read_image_rgb(path).shape[1::-1]
+    """(width, height) of a PNG or JPEG file, from its header."""
+    if _kind(path) == "png":
+        with open(path, "rb") as f:
+            return struct.unpack(">II", f.read(24)[16:24])
+    from .jpeg import jpeg_size
+
+    return jpeg_size(path)
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +278,15 @@ def _pil_pass(img: np.ndarray, out_size: int, axis: int, filt: str) -> np.ndarra
     in_size = img.shape[axis]
     xmin, kk = _pil_coeffs(in_size, out_size, filt)
     idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None, :], in_size - 1)
-    src = np.moveaxis(img, axis, 0).astype(np.int64)  # [in, ...]
-    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    # int32 sums, as Resample.c's (8-bit samples times 22-bit weights fit)
+    src = img.astype(np.int32)
+    shape = [1] * src.ndim
+    shape[axis] = out_size
+    acc = np.full(src.shape[:axis] + (out_size,) + src.shape[axis + 1:],
+                  1 << (_PRECISION_BITS - 1), np.int32)
     for k in range(kk.shape[1]):
-        wk = kk[:, k].reshape((-1,) + (1,) * (src.ndim - 1))
-        acc += src[idx[:, k]] * wk
-    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
+        acc += np.take(src, idx[:, k], axis=axis) * kk[:, k].astype(np.int32).reshape(shape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
 def pil_resize(img: np.ndarray, wh, filt: str = "lanczos") -> np.ndarray:

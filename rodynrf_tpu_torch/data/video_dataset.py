@@ -10,10 +10,12 @@ Loads:
   <disp_dir>/%0Nd.npy            DPT monocular disparity
   poses_bounds.npy               optional GT poses (LLFF layout)
 
-into a :class:`SceneData` of host numpy arrays. Images are decoded and
-resized by data/imageio.py (PIL's LANCZOS for frames, BILINEAR for masks;
-cv2's INTER_LINEAR for disparity and flow, INTER_NEAREST for flow masks),
-so PNG scenes need no image library.
+into a :class:`SceneData` of host numpy arrays. The frames and masks of a
+scene are decoded as one batch on the loader's device (PNG on the host,
+JPEG by data/jpeg.py's kernels on the card or their plain versions on the
+CPU) and resized on the host by data/imageio.py (PIL's LANCZOS for frames,
+BILINEAR for masks; cv2's INTER_LINEAR for disparity and flow, INTER_NEAREST
+for flow masks), so no image library is needed.
 """
 
 from __future__ import annotations
@@ -23,23 +25,19 @@ import os
 
 import numpy as np
 
-from .imageio import image_size, pil_resize, read_image_rgb, resize_linear, resize_nearest
+from .imageio import image_size, pil_resize, read_frames, resize_linear, resize_nearest
+from ..device import check_device
 from .llff import center_poses, resize_flow
 from .scene import SceneData, default_bbox
 
 
-def _load_image(path: str, wh) -> np.ndarray:
-    img = read_image_rgb(path)
+def _resized(img, wh, filt: str) -> np.ndarray:
+    """A decoded frame (a uint8 tensor) on the host at wh, through PIL's
+    filter when its size differs, in [0, 1]."""
+    img = img.cpu().numpy()
     if img.shape[1::-1] != tuple(wh):
-        img = pil_resize(img, wh, "lanczos")
+        img = pil_resize(img, wh, filt)
     return img.astype(np.float32) / 255.0
-
-
-def _load_mask(path: str, wh) -> np.ndarray:
-    img = read_image_rgb(path)
-    if img.shape[1::-1] != tuple(wh):
-        img = pil_resize(img, wh, "bilinear")
-    return img[..., 0].astype(np.float32) / 255.0
 
 
 def load_video_scene(
@@ -52,8 +50,12 @@ def load_video_scene(
     ray_type: str = "ndc",
     disp_dir: str = "disp",
     zfill: int = 3,
+    device="cuda",
 ) -> SceneData:
-    """Load an Nvidia-layout scene. For DAVIS pass disp_dir='dpt', zfill=5."""
+    """Load an Nvidia-layout scene. For DAVIS pass disp_dir='dpt', zfill=5.
+    The frames decode on `device`: the card unless the caller asks for the
+    CPU (RuntimeError without a card)."""
+    device = check_device(device)
     image_paths = sorted(glob.glob(os.path.join(datadir, "images/*")))
     if not image_paths:
         raise FileNotFoundError(f"no images under {datadir}/images")
@@ -99,10 +101,13 @@ def load_video_scene(
     masks_b = np.zeros((T, H, W), np.float32)
     disps = np.zeros((T, H, W), np.float32)
 
-    for idx, path in enumerate(image_paths):
-        rgbs[idx] = _load_image(path, wh)
-        if idx < len(mask_paths):
-            fg[idx] = _load_mask(mask_paths[idx], wh)
+    frames = read_frames(image_paths, device)
+    masks = read_frames(mask_paths[:T], device)
+    for idx in range(T):
+        rgbs[idx] = _resized(frames[idx], wh, "lanczos")
+        if idx < len(masks):
+            # PIL resizes each channel alone, and the loader keeps the first
+            fg[idx] = _resized(masks[idx][..., :1], wh, "bilinear")[..., 0]
 
         if use_disp:
             disp_path = os.path.join(datadir, disp_dir, str(idx).zfill(zfill) + ".npy")
@@ -157,9 +162,9 @@ DATASET_LOADERS = {
 }
 
 
-def load_scene(args) -> SceneData:
+def load_scene(args, device="cuda") -> SceneData:
     """Dataset dispatch mirroring the reference registry
-    (reference: dataLoader/__init__.py:3-6)."""
+    (reference: dataLoader/__init__.py:3-6); the frames decode on `device`."""
     if args.dataset_name == "synthetic":
         from .synthetic import make_synthetic_scene
 
@@ -172,4 +177,5 @@ def load_scene(args) -> SceneData:
         use_foreground_mask=args.use_foreground_mask,
         with_gt_poses=bool(args.with_GT_poses),
         ray_type=args.ray_type,
+        device=device,
     )

@@ -28,7 +28,7 @@ from ..fields import dynamic as dyn
 from ..fields.static import feature2density
 from ..train.checkpoints import load_checkpoint
 from ..train.convert import params_from_numpy
-from ..train.step import check_device
+from ..device import check_device
 
 LEVEL = 0.005  # the reference's export level (train.py:115)
 

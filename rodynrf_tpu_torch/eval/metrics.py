@@ -13,7 +13,7 @@ import os
 import numpy as np
 import torch
 
-from ..train.step import check_device
+from ..device import check_device
 from .lpips import load_lpips
 
 

@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..train.step import check_device
+from ..device import check_device
 
 
 @dataclass(frozen=True)

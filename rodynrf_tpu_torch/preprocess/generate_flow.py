@@ -24,9 +24,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data.imageio import read_image_rgb, resize_area, write_png
+from ..data.imageio import read_frames, resize_area, write_png
 from ..data.llff import resize_flow
-from ..train.step import check_device
+from ..device import check_device
 from ..utils.flow_viz import flow_to_image
 from .flow_utils import compute_fwdbwd_mask
 from .raft import load_raft
@@ -48,9 +48,10 @@ def sync(dev: torch.device) -> None:
 
 
 def main(argv=None, device="cuda") -> dict:
-    """Write the flow sidecars of a scene. Returns the seconds of each
-    pair's RAFT forward (synchronised) and of each whole pair, and whether
-    every flow is finite."""
+    """Write the flow sidecars of a scene. Returns the seconds of reading
+    the frames (one batch, decoded on the command's device), of each pair's
+    RAFT forward (synchronised) and of each whole pair, and whether every
+    flow is finite."""
     args = parse_args(argv)
     dev = check_device(device)
     model = load_raft(args.model, dev)
@@ -61,22 +62,25 @@ def main(argv=None, device="cuda") -> dict:
     os.makedirs(out_path, exist_ok=True)
     os.makedirs(img_path, exist_ok=True)
 
-    H0, W0 = read_image_rgb(images[0]).shape[:2]
+    t0 = time.perf_counter()
+    frames = read_frames(images, dev)  # one batch, each frame decoded once
+    sync(dev)
+    read_s = time.perf_counter() - t0
+    H0, W0 = frames[0].shape[:2]
     scale = args.long_side / max(H0, W0)
     Hs, Ws = int(round(H0 * scale)), int(round(W0 * scale))
     ph, pw = (8 - Hs % 8) % 8, (8 - Ws % 8) % 8
 
-    def load(path):  # [3, Hs + ph, Ws + pw] in 0-255, edge-padded
-        img = torch.from_numpy(read_image_rgb(path)).to(dev).float()
-        img = resize_area(img, (Ws, Hs)).permute(2, 0, 1)
+    def load(frame):  # [3, Hs + ph, Ws + pw] in 0-255, edge-padded
+        img = resize_area(frame.float(), (Ws, Hs)).permute(2, 0, 1)
         return F.pad(img[None], (0, pw, 0, ph), mode="replicate")[0]
 
     z = args.zfill
-    report = {"raft_s": [], "pair_s": [], "finite": True, "size": [Hs, Ws]}
-    nxt = load(images[0])
+    report = {"read_s": read_s, "raft_s": [], "pair_s": [], "finite": True, "size": [Hs, Ws]}
+    nxt = load(frames[0])
     for i in range(len(images) - 1):
         t0 = time.perf_counter()
-        cur, nxt = nxt, load(images[i + 1])
+        cur, nxt = nxt, load(frames[i + 1])
         sync(dev)
         t1 = time.perf_counter()
         with torch.inference_mode():

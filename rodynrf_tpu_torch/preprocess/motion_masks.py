@@ -44,8 +44,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..data.imageio import image_size, pil_resize, read_image_rgb, resize_nearest, write_png
-from ..train.step import check_device
+from ..data.imageio import (image_size, pil_resize, read_frames, read_image_rgb, resize_nearest,
+                             write_png)
+from ..device import check_device
 
 FLT_EPSILON = float(np.finfo(np.float32).eps)
 DBL_EPSILON = float(np.finfo(np.float64).eps)
@@ -301,16 +302,18 @@ def motion_mask_for_frame(err_maps: List[torch.Tensor], H: int, W: int,
     return dilation_disk2(mask)
 
 
-def run_semantic_segmentation(img_path: str, model=None) -> Optional[np.ndarray]:
+def run_semantic_segmentation(img, model=None) -> Optional[np.ndarray]:
     """The mask of movable classes (person, vehicles, accessories, animals,
-    sports; reference: generate_mask.py:70-121) from a Mask-RCNN `model`
-    (a torchvision detection model in eval mode), or None without one. The
-    repository carries no Mask-RCNN weights and the card's machine has no
-    torchvision, so the command line passes none and its masks come from the
-    epipolar error alone, as the JAX package's do without torchvision."""
+    sports; reference: generate_mask.py:70-121) in a frame (a path, or its
+    [H, W, 3] uint8 pixels) from a Mask-RCNN `model` (a torchvision
+    detection model in eval mode), or None without one. The repository
+    carries no Mask-RCNN weights and the card's machine has no torchvision,
+    so the command line passes none and its masks come from the epipolar
+    error alone, as the JAX package's do without torchvision."""
     if model is None:
         return None
-    img = read_image_rgb(img_path)
+    if isinstance(img, str):
+        img = read_image_rgb(img, "cpu")
     H, W = img.shape[:2]
     int_h, int_w = (576, 1024) if W > H else (1024, 576)
     img = pil_resize(img, (int_w, int_h), "lanczos")
@@ -329,16 +332,19 @@ def run_semantic_segmentation(img_path: str, model=None) -> Optional[np.ndarray]
 
 
 def generate_motion_masks(datadir: str, zfill: int = 5, out_dir: str = "epipolar_error_png",
-                          device="cuda") -> dict:
+                          device="cuda", model=None) -> dict:
     """Read flow/%0Nd_{fwd,bwd}.npz, write <out_dir>/%0Nd.png for every frame
     (reference: generate_mask.py:150-302), on the card unless `device` is
     the CPU; refuses without a card. The LMedS samples of all frames come
-    from one CPU generator seeded with LMEDS_SEED. Returns the seconds per
+    from one CPU generator seeded with LMEDS_SEED. With a Mask-RCNN `model`
+    the frames decode as one batch on the device (without one only their
+    size is read, from the first frame's header). Returns the seconds per
     frame, the masks' mean shares and, per error map, whether LMedS
     accepted an F."""
     dev = check_device(device)
     images = sorted(glob.glob(os.path.join(datadir, "images", "*")))
     W, H = image_size(images[0])
+    frames = read_frames(images, dev) if model is not None else None
     os.makedirs(os.path.join(datadir, out_dir), exist_ok=True)
     gen = torch.Generator().manual_seed(LMEDS_SEED)
     frame_s, shares, f_found = [], [], []
@@ -352,7 +358,8 @@ def generate_motion_masks(datadir: str, zfill: int = 5, out_dir: str = "epipolar
                 err, found = epipolar_fit(flow, H, W, gen)
                 err_maps.append(err)
                 f_found.append(found)
-        semantic = run_semantic_segmentation(images[idx])
+        semantic = (run_semantic_segmentation(frames[idx].cpu().numpy(), model)
+                    if frames is not None else None)
         if semantic is None and idx == 0:
             print("motion masks: no Mask-RCNN model (no weights in the repository); the "
                   "masks come from the epipolar error alone")

@@ -7,6 +7,17 @@ from __future__ import annotations
 import torch
 
 
+def abs_(x):
+    """|x| with the JAX package's subgradient at 0: jnp.abs passes +1 there,
+    torch.abs 0. The disparity pairs take it (train/step.py `_warped_pair`):
+    with contract rays two different empty rays can induce one disparity,
+    and in the static pairs that tie's gradient is not 0. The other L1 terms keep
+    torch.abs: the float64 parity tests find no gradient at their ties, and
+    a +1 there adds float32 rounding that depends on how the rays are split
+    over ranks."""
+    return torch.where(x >= 0, x, -x)
+
+
 def mse(a, b):
     return torch.mean((a - b) ** 2)
 

@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.rays import get_rays_lean, ids2pixel, make_rays, ndc_rays_blender
 from ..core.se3 import pose_to_mtx
+from ..device import check_device
 from ..fields import dynamic as dyn_field
 from ..fields import static as stat_field
 from ..fields.alpha_mask import occupancy_nearest
@@ -170,6 +171,25 @@ def _rays_from_idx(ray_idx, poses_mtx, focal, S: StepStatics):
     i, j, view_ids = ids2pixel(W, H, ray_idx)
     rays = make_rays(i, j, (focal, focal), (W / 2, H / 2), poses_mtx[view_ids], H, W, S.ray_type)
     return rays, i, j, view_ids
+
+
+def _warped_pair(a, b, rays_a, rays_b):
+    """a - b per ray of the four disparity pairs, detached where the two
+    rays are one ray with one value. Ties between different rays are real
+    (contract rays: two empty rays whose far points share their largest
+    coordinate induce one disparity) and take `losses.abs_`'s +1, as in the
+    JAX package; in the static pairs that tie reaches the poses and focal,
+    in the dynamic ones no parameter (their rays, poses and focal are
+    detached, and an empty ray's weights sit behind relu's zero
+    derivative). But the last frame's forward neighbour and the first
+    frame's backward one are the frame itself: the warped ray is then the
+    training ray and, with one sample set, the two disparities are one
+    function of the parameters, whose difference has no gradient; a +1 there
+    would add only float32 rounding that depends on how the rays are split
+    over ranks."""
+    d = a - b
+    one = (rays_a == rays_b).all(-1, keepdim=True) & (d == 0)
+    return torch.where(one, d.detach(), d)
 
 
 def _rays_from_uv(uv, pose_per_ray, focal, S: StepStatics):
@@ -861,7 +881,8 @@ def train_loss(
         H, W, focal_det, sg(poses_f), outC.weights_d, dnC.pts_ref, grid_train, sg(rays_f),
         S.ray_type,
     )
-    disp_f_loss = L.masked_l1_mean(torch.abs(induced_disp_f - induced_disp_ff), mask_f)
+    disp_f_loss = L.masked_l1_mean(
+        L.abs_(_warped_pair(induced_disp_f, induced_disp_ff, rays_det, rays_f)), mask_f)
     total = total + 0.04 * disp_f_loss * Temp
     metrics["disp_f_loss"] = disp_f_loss
 
@@ -870,7 +891,8 @@ def train_loss(
         H, W, focal_det, sg(poses_b), outD.weights_d, dnD.pts_ref, grid_train, sg(rays_b),
         S.ray_type,
     )
-    disp_b_loss = L.masked_l1_mean(torch.abs(induced_disp_b - induced_disp_bb), mask_b)
+    disp_b_loss = L.masked_l1_mean(
+        L.abs_(_warped_pair(induced_disp_b, induced_disp_bb, rays_det, rays_b)), mask_b)
     total = total + 0.04 * disp_b_loss * Temp
     metrics["disp_b_loss"] = disp_b_loss
 
@@ -976,7 +998,9 @@ def train_loss(
         _, induced_disp_s_ff = induce_flow(
             H, W, focal, poses_f, stFF.weights, stFF.pts_ref, grid_train, rays_f_nd, S.ray_type
         )
-        disp_f_s = L.masked_l1_mean(torch.abs(induced_disp_f_s - induced_disp_s_ff), comb_f)
+        disp_f_s = L.masked_l1_mean(
+            L.abs_(_warped_pair(induced_disp_f_s, induced_disp_s_ff, rays_train, rays_f_nd)),
+            comb_f)
         total = total + 0.04 * disp_f_s * Temp_static
         metrics["disp_f_s_loss"] = disp_f_s
 
@@ -984,7 +1008,9 @@ def train_loss(
         _, induced_disp_s_bb = induce_flow(
             H, W, focal, poses_b, stBB.weights, stBB.pts_ref, grid_train, rays_b_nd, S.ray_type
         )
-        disp_b_s = L.masked_l1_mean(torch.abs(induced_disp_b_s - induced_disp_s_bb), comb_b)
+        disp_b_s = L.masked_l1_mean(
+            L.abs_(_warped_pair(induced_disp_b_s, induced_disp_s_bb, rays_train, rays_b_nd)),
+            comb_b)
         total = total + 0.04 * disp_b_s * Temp_static
         metrics["disp_b_s_loss"] = disp_b_s
 
@@ -1069,15 +1095,6 @@ def apply_updates(params, opt_state, sc):
     opt_state["fov"].param_groups[0]["lr"] = float(sc["lr_focal"])
     for opt in opt_state.values():
         opt.step()
-
-
-def check_device(device) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for the CPU; no fallback when the card is missing."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class TrainStep:

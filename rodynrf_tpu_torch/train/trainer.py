@@ -38,6 +38,7 @@ import torch
 
 from ..core.se3 import pose_to_mtx
 from ..data.scene import SceneData, default_focal
+from ..device import check_device
 from ..fields import FieldConfig, cal_n_samples, n_to_reso
 from ..fields import dynamic as dyn_field
 from ..fields import static as stat_field
@@ -56,7 +57,6 @@ from .step import (
     LossWeights,
     StepStatics,
     _rays_from_idx,
-    check_device,
     focal_from_fov,
     init_opt_state,
     make_train_step,

@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from ..train.step import check_device
+from ..device import check_device
 
 
 @contextlib.contextmanager

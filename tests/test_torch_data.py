@@ -53,7 +53,7 @@ def _same_scene(ours, ref, tol=None):
 def test_golden_fixture_loads_as_in_jax():
     kw = dict(downsample=1.0, use_disp=True, use_foreground_mask="motion_masks",
               with_gt_poses=True, ray_type="ndc")
-    _same_scene(load_nvidia_scene(FIXTURE, **kw), jload_nvidia(FIXTURE, **kw))
+    _same_scene(load_nvidia_scene(FIXTURE, **kw, device="cpu"), jload_nvidia(FIXTURE, **kw))
 
 
 @pytest.mark.parametrize("gt_poses", [0, 1])
@@ -62,7 +62,7 @@ def test_downsampled_scene_loads_as_in_jax(tmp_path, gt_poses):
     write_video_scene(root, T=4, H=48, W=64, seed=gt_poses)
     kw = dict(downsample=2.0, use_disp=True, use_foreground_mask="motion_masks",
               with_gt_poses=bool(gt_poses), ray_type="ndc")
-    ours, ref = load_nvidia_scene(root, **kw), jload_nvidia(root, **kw)
+    ours, ref = load_nvidia_scene(root, **kw, device="cpu"), jload_nvidia(root, **kw)
     assert ours.img_wh == (32, 24)
     pix = 1.0 / 255 + 1e-7
     _same_scene(ours, ref, tol={"rgbs": pix, "rgbs_stack": pix, "fg_masks": pix,
@@ -85,7 +85,7 @@ def test_davis_layout_through_load_scene(tmp_path):
                 shutil.copy(f, root / "flow" / f"{t:05d}_{kind}.npz")
     args = config_parser(["--dataset_name", "davis", "--datadir", str(root),
                           "--downsample_train", "1", "--N_voxel_t", "3", "--use_disp", "1"])
-    ours = load_scene(args)
+    ours = load_scene(args, "cpu")
     ref = jload_davis(str(root), downsample=1.0, use_disp=True,
                       use_foreground_mask="motion_masks", with_gt_poses=False, ray_type="ndc")
     _same_scene(ours, ref)

@@ -114,13 +114,20 @@ def test_cv2_resizes_match_cv2(sizes):
 
 
 def test_jpeg_frames_need_pil(monkeypatch, tmp_path):
+    """JPEG frames no longer need PIL: with PIL blocked the port decodes
+    them (data/jpeg.py) to PIL's own pixels; a file that is neither PNG nor
+    JPEG raises, naming it."""
     path = str(tmp_path / "f.jpg")
     img = _images((12, 20, 3), 9)[1]
     Image.fromarray(img).save(path, quality=95)
-    np.testing.assert_array_equal(io.read_image_rgb(path), np.asarray(Image.open(path)))
+    want = np.asarray(Image.open(path))
+    other = tmp_path / "f.bmp"
+    Image.fromarray(img).save(str(other))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match="only PNG"):
-        io.read_image_rgb(path)
+    np.testing.assert_array_equal(io.read_image_rgb(path, device="cpu"), want)
+    assert io.image_size(path) == (20, 12)
+    with pytest.raises(ValueError, match="f.bmp: not a PNG or JPEG"):
+        io.read_image_rgb(str(other), device="cpu")
 
 
 def test_port_reads_and_writes_pngs_without_image_libraries(monkeypatch, tmp_path, capsys):
@@ -131,7 +138,7 @@ def test_port_reads_and_writes_pngs_without_image_libraries(monkeypatch, tmp_pat
 
     scene = load_nvidia_scene(os.path.join(OUT, "fixture"), downsample=1.0, use_disp=True,
                               use_foreground_mask="motion_masks", with_gt_poses=True,
-                              ray_type="ndc")
+                              ray_type="ndc", device="cpu")
     assert scene.rgbs_stack.shape == (4, 24, 32, 3) and scene.fg_masks.max() > 0
     rep = main(["--config", os.path.join(REPO, "golden", "tiny.txt"),
                 "--datadir", os.path.join(OUT, "fixture"), "--basedir", str(tmp_path),

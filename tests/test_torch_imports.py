@@ -53,7 +53,7 @@ def test_port_imports_no_jax_and_builds_nothing():
                 "rodynrf_tpu_torch.eval.lpips", "rodynrf_tpu_torch.core.rays_extra",
                 "rodynrf_tpu_torch.parallel.collectives", "rodynrf_tpu_torch.parallel.mesh",
                 "rodynrf_tpu_torch.parallel.multihost", "rodynrf_tpu_torch.parallel.sample_shard",
-                "rodynrf_tpu_torch.parallel.launch"}
+                "rodynrf_tpu_torch.parallel.launch", "rodynrf_tpu_torch.device"}
     assert expected <= set(res["modules"])
     assert res["bad"] == []
     assert res["started"] == []

@@ -368,3 +368,40 @@ def test_segsum_factored_kernel_edge_cases_and_refusals():
     with pytest.raises(TypeError):
         tseg.segment_rows_sum_factored(idx, w, torch.randn(64, 3, 8, device=dev), 4,
                                        torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("restart", [0, 2])
+def test_jpeg_kernels_match_their_plain_versions(restart, tmp_path):
+    """The three JPEG kernels (csrc/jpeg_entropy.cu, csrc/jpeg_idct.cu) on the
+    committed fixtures and on write_jpeg frames of every subsampling, with
+    and without restart markers, equal their plain versions bit for bit:
+    blocks, status words, planes and pixels."""
+    from rodynrf_tpu_torch.data import jpeg as J
+    from rodynrf_tpu_torch.ops import jpeg as K
+    from rodynrf_tpu_torch.testing import write_jpeg
+
+    dev = _card()
+    rng = np.random.default_rng(restart)
+    paths = [str(p) for p in sorted((REPO / "tests" / "data" / "jpeg").glob("*.jpg"))
+             if "progressive" not in p.name]
+    for i, (sub, (h, w)) in enumerate([("444", (17, 23)), ("422", (33, 9)), ("420", (40, 56)),
+                                       ("440", (31, 45)), ("gray", (24, 24))]):
+        img = rng.integers(0, 256, (h, w) if sub == "gray" else (h, w, 3), dtype=np.uint8)
+        paths.append(str(tmp_path / f"{i}.jpg"))
+        write_jpeg(paths[-1], img, 75, "444" if sub == "gray" else sub, restart)
+    host = J.pack([J.read_jpeg(p) for p in paths])
+    card = host.to(dev)
+    coef_p, st_p = K.jpeg_entropy(host)
+    planes_p = K.jpeg_idct(coef_p, host)
+    rgb_p = K.jpeg_color(planes_p, host)
+    before = (K.jpeg_entropy.launches, K.jpeg_idct.launches, K.jpeg_color.launches)
+    coef, st = K.jpeg_entropy(card)
+    planes = K.jpeg_idct(coef, card)
+    rgb = K.jpeg_color(planes, card)
+    torch.cuda.synchronize()
+    assert (K.jpeg_entropy.launches, K.jpeg_idct.launches, K.jpeg_color.launches) == tuple(
+        n + 1 for n in before)
+    assert not st_p.any()
+    for got, want in ((coef, coef_p), (st, st_p), (planes, planes_p), (rgb, rgb_p)):
+        assert torch.equal(got.cpu(), want)
