@@ -83,8 +83,9 @@ result):
          line per grid (samples per ray, policies, table bytes, ms/step,
          peak reset per size); at 640³ one step on a single batch of 1024
          rays (--grad_accum 1) rematerialized, as the auto rule resolves it,
-         and one in store mode, each with its peak; a profiled step and a
-         full checkpoint save;
+         and one in store mode, each with its peak; a profiled step (no
+         checkpoint save at 640³: the CPU tests hold save_full and its exact
+         resume, phase 7 saves and resumes at 300³);
      10c. both kernels held to their plain versions at one 640³
          micro-batch's shapes (the segment sum at the merged layout's:
          'auto' puts the 640³ dynamic field on the strided one);
@@ -113,9 +114,9 @@ result):
          mask of one flow on both from one generator seed (>= 99% of
          pixels agree); then at the scene's full size (540x960) the flow of
          a synthetic two-view scene with an independently moving patch on
-         both: F accepted on each, the masks agree on >= 99% of pixels and
-         cover the patch (>= 90% of it, <= 10% of the static pixels); one
-         `preprocess` JSON line;
+         the card alone (the CPU's fit at this size is not repeated): F
+         accepted, the mask covers the patch (>= 90% of it, <= 10% of the
+         static pixels); one `preprocess` JSON line;
   12. (inside phase 7, after its --render_only) mesh export and LPIPS:
      12a. `cli.main([... "--export_mesh", "1", "--ckpt", <phase 7's .npz>])`
          at the full 331×368×220 grid: seconds of dense_alpha,
@@ -189,12 +190,24 @@ result):
          counts equal to launches per step × steps for the layouts auto
          chose, `main_path` lines `davis_cli`, `davis_16`, `davis_256`, one
          `davis` JSON line;
+  15. (after 14) tools/quality_run's recipe (ndc, pose and focal, 32³ ->
+     128³) on its 8×96×128 scene for 150 iterations, the JAX script's
+     fractions of the budget: upsamples at 25, 50, 75 and 100, the focal
+     activation at 100, the pose freeze after 75, each checked at its
+     iteration; both table-gradient kernels launched (counts set to 0
+     before); the evaluation of the 8 frames (PSNR above the first logged
+     train PSNR, every metric finite); tools/export_alpha of the checkpoint
+     on the card (occupancy) and at 32³ on the card and on the CPU (the
+     masks equal except where the pooled alpha lies within 1e-5 of the
+     threshold); one `quality` JSON line and a `main_path` line, path
+     `quality`;
   6. (printed last) a `main_path` JSON line per path, one JSON line of
      kernels, the nvidia-smi line, and the result line.
 
 `python3 chip_smoke.py --kernels-only` runs phases 1-3 alone and prints the
 cases as one `kernel_cases` JSON line; `python3 chip_smoke.py
---parallel-only` runs phases 1, 2 and 13; `--davis-only` phases 1, 2 and 14.
+--parallel-only` runs phases 1, 2 and 13; `--davis-only` phases 1, 2 and 14;
+`--quality-only` phases 1, 2 and 15.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -300,6 +313,14 @@ DAVIS_VOXELS_256 = "16777216"  # 256³, the recipe's N_voxel_final
 JPEG_SOURCES = ("jpeg_entropy", "jpeg_idct")
 JPEG_KERNELS = ("jpeg_entropy", "jpeg_idct", "jpeg_color")
 JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+# phase 15: tools/quality_run's recipe (ndc, pose + focal) on its 8×96×128
+# scene for QUALITY_ITERS iterations: the JAX script's upsample fractions of
+# the budget (1/6, 1/3, 1/2, 2/3) put the upsamples at 25, 50, 75 and 100,
+# the focal activation at 100 and the pose freeze after 75
+QUALITY_ITERS = 150
+QUALITY_EVENTS = {"upsample": [25, 50, 75, 100], "focal_on": 100, "pose_freeze": 76}
+QUALITY_EXPORT_DIM = 32  # export_alpha's max_dim for the card-vs-CPU comparison
+QUALITY_MASK_ATOL = 1e-5  # masks may differ only where alpha lies this near the threshold
 
 
 def log(*a):
@@ -1688,30 +1709,26 @@ def two_view_flow(H: int, W: int):
 
 def compare_full_size_lmeds(H: int, W: int, device: str) -> dict:
     """Phase 11e at the scene's size: the LMedS fit, quantile, threshold and
-    morphology of `two_view_flow` on `device` and on the CPU from one
-    generator seed. Each must accept an F, the masks must agree on >=
-    LMEDS_AGREE_MIN of the pixels, and the card's must cover the moving
-    patch (>= PATCH_HIT_MIN of it) and spare the static pixels (<=
-    STATIC_HIT_MAX of them)."""
+    morphology of `two_view_flow` on `device` from one generator seed. It
+    must accept an F, and its mask must cover the moving patch (>=
+    PATCH_HIT_MIN of it) and spare the static pixels (<= STATIC_HIT_MAX of
+    them). The card is held to the CPU at 128×128 (above), and the port's
+    masks to the JAX package's cv2 LMedS by tests/test_torch_preprocess_masks.py;
+    the CPU's fit at this size (41-51 s on the H100 machine's host) is not
+    repeated."""
     from rodynrf_tpu_torch.preprocess.motion_masks import epipolar_fit, motion_mask_for_frame
 
     flow, moving = two_view_flow(H, W)
-    masks, found, secs = {}, {}, {}
-    for dev in (device, "cpu"):
-        t0 = time.time()
-        err, found[dev] = epipolar_fit(flow.to(dev), H, W, torch.Generator().manual_seed(0))
-        masks[dev] = motion_mask_for_frame([err], H, W).cpu()
-        secs[dev] = time.time() - t0
-    m = masks[device]
-    out = {"size": [H, W], "f_found": found[device], "f_found_cpu": found["cpu"],
-           "mask_agreement": float((m == masks["cpu"]).float().mean()),
-           "agreement_min": LMEDS_AGREE_MIN, "mask_share": float(m.mean()),
+    t0 = time.time()
+    err, found = epipolar_fit(flow.to(device), H, W, torch.Generator().manual_seed(0))
+    m = motion_mask_for_frame([err], H, W).cpu()
+    out = {"size": [H, W], "f_found": found, "mask_share": float(m.mean()),
            "patch_share": float(moving.float().mean()),
            "patch_hit": float(m[moving].mean()), "patch_hit_min": PATCH_HIT_MIN,
            "static_hit": float(m[~moving].mean()), "static_hit_max": STATIC_HIT_MAX,
-           "fit_s": secs[device], "fit_s_cpu": secs["cpu"]}
-    if not (found[device] and found["cpu"] and out["mask_agreement"] >= LMEDS_AGREE_MIN
-            and out["patch_hit"] >= PATCH_HIT_MIN and out["static_hit"] <= STATIC_HIT_MAX):
+           "fit_s": time.time() - t0}
+    if not (found and out["patch_hit"] >= PATCH_HIT_MIN
+            and out["static_hit"] <= STATIC_HIT_MAX):
         raise AssertionError(f"11e: the full-size LMedS mask is wrong: {out}")
     return out
 
@@ -1866,15 +1883,11 @@ def walk_schedule(scene, smi: str, device: str = "cuda"):
     resolved policies, the table bytes, ms/step and the peak (reset per
     size). At 640³: one step on a single batch of 1024 rays,
     rematerialized (what --grad_accum 1 resolves to) and in store mode,
-    each with its peak; one profiled step, a full checkpoint save (seconds,
-    bytes), and both kernels held to their plain versions at one
-    micro-batch's shapes (10c; the segment sum at the merged layout's, since
-    'auto' puts the 640³ dynamic field on the strided one). Returns (the
-    walk's record, the 10c kernel cases)."""
+    each with its peak; one profiled step, and both kernels held to their
+    plain versions at one micro-batch's shapes (10c; the segment sum at the
+    merged layout's, since 'auto' puts the 640³ dynamic field on the strided
+    one). Returns (the walk's record, the 10c kernel cases)."""
     import dataclasses
-    import os
-    import shutil
-    import tempfile
 
     from rodynrf_tpu_torch.train import Trainer, parse_cmd
     from rodynrf_tpu_torch.train.step import make_train_step
@@ -1950,20 +1963,12 @@ def walk_schedule(scene, smi: str, device: str = "cuda"):
     tr.step_fn = make_train_step(S_walk, tr.device)
     launches = counters()
 
-    # 640³: a profiled step, then a full checkpoint save
+    # 640³: a profiled step. The full checkpoint is not saved at this size
+    # (42-47 s on the H100 machine's host): the CPU tests hold save_full
+    # and its exact resume, and phase 7 saves and resumes at 300³
     prof = profile_step(tr)
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_walk_"))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        tr.save_full(str(root / "walk_640.npz"))
-        save_s = time.time() - t0
-        save_bytes = os.path.getsize(root / "walk_640.npz")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
     log(f"[walk] 640³: profiled step device busy {prof['device_busy_ms']:.1f} ms, "
-        f"{prof['device_launches']} launches; full checkpoint save {save_s:.2f} s, "
-        f"{save_bytes / 2**20:.1f} MiB ({smi})")
+        f"{prof['device_launches']} launches ({smi})")
 
     # 10c: the kernels at one micro-batch's shapes at 640³
     S = tr.step_fn.S
@@ -1972,7 +1977,7 @@ def walk_schedule(scene, smi: str, device: str = "cuda"):
     cases = check_kernels_at(tr, points, "640", merged_cfg=merged)
     record = {"path": "walk_640", **policies(S), "sizes": sizes, "launches": launches,
               "one_batch_640": one_batch,
-              "profile_640": prof, "save_full_s": save_s, "save_full_bytes": save_bytes,
+              "profile_640": prof,
               "card": smi}
     log(json.dumps({"main_path": {k: v for k, v in record.items() if k != "sizes"}}))
     del tr
@@ -2683,11 +2688,103 @@ def drive_davis(smi: str, device: str = "cuda"):
     return records, davis
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the quality run, shortened
+# ---------------------------------------------------------------------------
+
+
+def drive_quality(smi: str, device: str = "cuda", scene=None, n_iters: int = QUALITY_ITERS,
+                  extra: str = "", expected_events=None, export_dim: int = QUALITY_EXPORT_DIM):
+    """Phase 15: `tools.quality_run.run` of the ndc recipe on its 8×96×128
+    scene (or `scene`, with the recipe flags `extra`) for n_iters
+    iterations with the counts set to 0 before it: every schedule event at
+    the iteration the plan gives (`expected_events`, default QUALITY_EVENTS
+    at QUALITY_ITERS), both table-gradient kernels launched, every metric
+    finite, the eval PSNR above the first logged train PSNR. Then
+    `tools.export_alpha` of its checkpoint on the card (default max_dim:
+    the mask's occupancy) and at `export_dim` on the card and on the CPU:
+    the masks may differ only at voxels whose pooled alpha lies within
+    QUALITY_MASK_ATOL of the threshold. Prints one `quality` JSON line;
+    returns (its `main_path` record, the line's content)."""
+    import shutil
+    import tempfile
+
+    from rodynrf_tpu_torch.data import make_synthetic_scene
+    from rodynrf_tpu_torch.tools import export_alpha, quality_run
+
+    if scene is None:
+        scene = make_synthetic_scene(**quality_run.SCENE, ray_type="ndc")
+    if expected_events is None and n_iters == QUALITY_ITERS:
+        expected_events = QUALITY_EVENTS
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_quality_"))
+    try:
+        t0 = time.time()
+        reset_counters()
+        rec = quality_run.run("ndc", n_iters, scene=scene, device=device, out=str(root),
+                              extra=extra, log=lambda *a: None)
+        launches = counters()
+        run_s = time.time() - t0
+        ckpt, thres = rec["ckpt"], 1e-4
+        t1 = time.time()
+        mask = export_alpha.export(ckpt, str(root / "mask.npz"), device=device)
+        export_s = time.time() - t1
+        paths = {dev: str(root / f"mask_{export_dim}_{dev}.npz") for dev in (device, "cpu")}
+        secs = {}
+        for dev, path in paths.items():
+            t1 = time.time()
+            export_alpha.export(ckpt, path, export_dim, thres, device=dev)
+            secs[dev] = time.time() - t1
+        alpha, _, _ = export_alpha.checkpoint_alpha(ckpt, export_dim, device)
+        pooled = export_alpha.pooled_alpha(alpha).cpu().numpy()
+        agree = export_alpha.compare_masks(paths[device], paths["cpu"], pooled, thres,
+                                           QUALITY_MASK_ATOL)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info = {
+        "n_iters": n_iters, "scene": rec["scene"], "grid_final": rec["grid_final"],
+        "n_samples": rec["n_samples"], "ms_per_step_median": rec["ms_per_step_median"],
+        "ms_per_step_by_grid": rec["ms_per_step_by_grid"], "peak_gib": rec["peak_gib"],
+        "eval_psnr": rec["eval_psnr"], "eval_ssim": rec["eval_ssim_mean"],
+        "first_logged_train_psnr": rec["first_logged_train_psnr"],
+        "train_psnr_curve": rec["train_psnr_curve"], "events": rec["events"],
+        "events_expected": rec["events_expected"], "launches": launches,
+        "mask_occupancy": mask["occupancy"], "mask_grid": mask["grid"], "export_s": export_s,
+        "card_vs_cpu": {**agree, "max_dim": export_dim, "export_s": secs},
+        "run_s": run_s, "phase_s": time.time() - t0, "card": smi,
+    }
+    log(f"[15] quality_run ndc {n_iters} iterations: {info['ms_per_step_median']:.1f} ms/step, "
+        f"eval PSNR {info['eval_psnr']:.3f} SSIM {info['eval_ssim']}, events {rec['events']}, "
+        f"launches {launches}, mask occupancy {mask['occupancy']}, card vs CPU {agree} "
+        f"({info['phase_s']:.1f} s; {smi})")
+    log(json.dumps({"quality": info}))
+    values = [info["eval_psnr"], info["eval_ssim"], info["ms_per_step_median"],
+              *(p for _, p in info["train_psnr_curve"]), *rec["final_metrics"].values()]
+    if not all(v is not None and math.isfinite(v) for v in values):
+        raise AssertionError(f"15: a non-finite metric: {values}")
+    if not all(launches[k] > 0 for k in KERNELS):
+        raise AssertionError(f"15: a table-gradient kernel launched no time: {launches}")
+    want = expected_events if expected_events is not None else rec["events_expected"]
+    if rec["events"] != want or rec["events_expected"] != want:
+        raise AssertionError(f"15: events {rec['events']}, the plan's {rec['events_expected']}, "
+                             f"expected {want}")
+    if not info["eval_psnr"] > info["first_logged_train_psnr"]:
+        raise AssertionError(f"15: eval PSNR {info['eval_psnr']} not above the first logged "
+                             f"train PSNR {info['first_logged_train_psnr']}")
+    if agree["differ_off_threshold"] or not agree["aabb_equal"]:
+        raise AssertionError(f"15: the card's mask disagrees with the CPU's: {agree}")
+    record = {"path": "quality", "grid": rec["grid_final"], "n_samples": rec["n_samples"],
+              "ms_per_step": rec["ms_per_step_median"], "steps": n_iters,
+              "launches": launches, "peak_gib": rec["peak_gib"], "card": smi}
+    log(json.dumps({"main_path": record}))
+    return record, info
+
+
 def main() -> int:
     t_start = time.time()
     kernels_only = "--kernels-only" in sys.argv[1:]
     parallel_only = "--parallel-only" in sys.argv[1:]
     davis_only = "--davis-only" in sys.argv[1:]
+    quality_only = "--quality-only" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
@@ -2709,6 +2806,13 @@ def main() -> int:
         for fn, info in ptxas_summary(rep):
             log(f"[build] {name}: {fn}: {info}")
 
+    if quality_only:  # phase 15 alone
+        drive_quality(smi)
+        log(f"[done] {time.time() - t_start:.1f} s")
+        log(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": count}}), flush=True)
+        return 0
     scene = make_synthetic_scene(**SCENE, ray_type=parse_cmd(" ".join(RECIPE)).ray_type)
     if parallel_only or davis_only:  # phase 13 or phase 14 alone
         for rec in (drive_distributed(scene, smi) if parallel_only else drive_davis(smi)[0]):
@@ -2800,6 +2904,10 @@ def main() -> int:
     # the recipe at 16³ and 256³
     davis_records, davis = drive_davis(smi)
     records.extend(davis_records)
+
+    # 15. the quality run, shortened: the schedule's events, the kernels, the
+    # evaluation and the mask export
+    records.append(drive_quality(smi)[0])
 
     # 13. the distributed step (a NCCL group of its own, torn down after)
     records.extend(drive_distributed(scene, smi))

@@ -71,7 +71,7 @@ def test_chip_smoke_preprocess_phase_rehearses_on_the_cpu(monkeypatch):
     assert cmp["raft_max_epe_px"] == 0.0 and cmp["dpt_max_rel"] == 0.0
     assert cmp["lmeds_mask_agreement"] == 1.0
     full = info["lmeds_full_size"]
-    assert full["size"] == [64, 64] and full["f_found"] and full["mask_agreement"] == 1.0
+    assert full["size"] == [64, 64] and full["f_found"]
     assert full["patch_hit"] >= cs.PATCH_HIT_MIN and full["static_hit"] <= cs.STATIC_HIT_MAX
     json.dumps(info)  # the `preprocess` line
 

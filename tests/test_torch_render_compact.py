@@ -244,7 +244,7 @@ def test_chip_smoke_memory_phases_rehearse_on_the_cpu(monkeypatch):
     walk, cases = cs.walk_schedule(scene, "cpu", device="cpu")
     assert len(walk["sizes"]) == 8 and walk["grad_accum"] == 4
     assert [s["grid"] for s in walk["sizes"]][::7] == [[17, 19, 11], [35, 39, 23]]
-    assert walk["save_full_bytes"] > 0 and walk["launches"]["coalesce"] > 0
+    assert walk["profile_640"] and walk["launches"]["coalesce"] > 0
     assert [(r["grad_accum"], r["remat"]) for r in walk["one_batch_640"]] == [(1, True),
                                                                             (1, False)]
     assert {c["case"].split()[0] for c in cases} == {"static", "dynamic"} and len(cases) == 6
