@@ -169,13 +169,19 @@ result):
          one card a line says it was not run and why;
   14. (before 13) configs/DAVIS.txt from JPEG frames: a DAVIS-layout scene
      of 8 frames at 1920×1080 written as baseline 4:2:0 JPEG (quality 90,
-     `testing.write_jpeg`, from the synthetic scene's frames);
-     14a. the JPEG kernels (csrc/jpeg_entropy.cu, csrc/jpeg_idct.cu) against
-         their plain versions on the CPU, bit for bit (blocks, status words,
-         planes, pixels): the committed fixtures (tests/data/jpeg) as one
-         batch, one frame, the same frame re-encoded with a restart marker
-         every 8 MCUs; each kernel's ms (CUDA events), the plain versions'
-         CPU ms, each kernel's byte bound; then the 8 frames as one batch
+     `testing.write_jpeg`, from the synthetic scene's frames), and one of 8
+     frames at 854×480 (DAVIS's 480p) as progressive 4:2:0 JPEG
+     (`write_jpeg(progressive=True)`: libjpeg's standard 10-scan script);
+     14a. the JPEG kernels (csrc/jpeg_entropy.cu, csrc/jpeg_progressive.cu,
+         csrc/jpeg_idct.cu) against their plain versions on the CPU, bit for
+         bit (blocks, status words, planes, pixels): the committed baseline
+         fixtures (tests/data/jpeg) as one batch, one frame, the same frame
+         re-encoded with a restart marker every 8 MCUs, every fixture
+         (baseline and progressive) as one batch, the progressive scene's
+         frames as one batch; each kernel's ms (CUDA events, each through
+         its wrapper; the progressive decode's split by round from the
+         profiler's kernel events), the plain versions' CPU ms, each
+         kernel's byte bound; then each scene's 8 frames as one batch
          (`decode_jpegs` end to end, and each kernel);
      14b. `preprocess flow | depth --out_dir dpt | mask`, each with --zfill 5,
          from phase 11's kind of random checkpoints: flow and depth read the
@@ -183,13 +189,19 @@ result):
      14c. `cli.main` of the recipe at its 16³ start on 14b's products with
          --downsample_train 2 (960×540 rays; every frame decoded by the
          kernels, resized by pil_resize): 3 steps, the evaluation of the 8
-         frames, the checkpoint, then --render_only from it with the same
-         PSNRs; then one more scene load and a trainer's 2 warm + 3 timed
-         steps on it at 16³ and at 256³ (--N_voxel_init 16777216,
+         frames, the checkpoint; then one more scene load and a trainer's 2 warm + 3
+         timed steps on it at 16³ and at 256³ (--N_voxel_init 16777216,
          --render_test 0): finite losses, launch
          counts equal to launches per step × steps for the layouts auto
-         chose, `main_path` lines `davis_cli`, `davis_16`, `davis_256`, one
-         `davis` JSON line;
+         chose, `main_path` lines `davis_cli`, `davis_16`, `davis_256`;
+     14d. the progressive scene through `load_scene` on the card (one
+         batch: no baseline launch, one progressive launch per round, one
+         IDCT and one colour pass) equal bit for bit to `load_scene` on the
+         CPU, then `cli.main` for 1 step (--render_test 0; the CLI's final
+         evaluation of the training frames runs, as the reference's does):
+         a finite loss and PSNRs, launch counts as above, `main_path` line
+         `davis_progressive`; then --render_only from its checkpoint, which
+         must give the final evaluation's PSNRs; one `davis` JSON line;
   15. (after 14) tools/quality_run's recipe (ndc, pose and focal, 32³ ->
      128³) on its 8×96×128 scene for 150 iterations, the JAX script's
      fractions of the budget: upsamples at 25, 50, 75 and 100, the focal
@@ -310,8 +322,11 @@ DAVIS_SCENE = dict(T=8, H=1080, W=1920)
 DAVIS_QUALITY, DAVIS_RESTART = 90, 8  # write_jpeg's quality; MCUs per restart interval
 DAVIS_CLI_STEPS, DAVIS_WARM, DAVIS_TIMED = 3, 2, 3
 DAVIS_VOXELS_256 = "16777216"  # 256³, the recipe's N_voxel_final
-JPEG_SOURCES = ("jpeg_entropy", "jpeg_idct")
-JPEG_KERNELS = ("jpeg_entropy", "jpeg_idct", "jpeg_color")
+JPEG_SOURCES = ("jpeg_entropy", "jpeg_progressive", "jpeg_idct")
+JPEG_KERNELS = ("jpeg_entropy", "jpeg_progressive", "jpeg_idct", "jpeg_color")
+# 14a/14d: a DAVIS-layout scene of progressive frames at DAVIS's 480p
+# (testing.write_jpeg's libjpeg standard script), as the loader's one batch
+DAVIS_PROGRESSIVE = dict(T=8, H=480, W=854)
 JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
 # phase 15: tools/quality_run's recipe (ndc, pose + focal) on its 8×96×128
 # scene for QUALITY_ITERS iterations: the JAX script's upsample fractions of
@@ -2401,15 +2416,67 @@ def reset_jpeg_counters():
 
 def jpeg_bytes(host) -> dict:
     """Bytes each JPEG kernel must move for a batch (each input read once,
-    each output written once): entropy reads the compressed bytes, the
-    segment list and its frames' Huffman tables and writes the int16
-    blocks; the IDCT reads the blocks and quantisers and writes the planes;
-    the colour pass reads the planes and writes 3 bytes a pixel."""
+    each output written once): entropy reads the baseline segments'
+    compressed bytes, the segment list and its frames' Huffman tables and
+    writes the baseline frames' int16 blocks; the progressive decode reads
+    its segments' bytes, segment list, scan words and per-scan tables and
+    writes the progressive frames' blocks (once, though its rounds refine
+    them in place); the IDCT reads the blocks and quantisers and writes the
+    planes; the colour pass reads the planes and writes 3 bytes a pixel."""
+    b0 = host.plane_block0.tolist()
+    prog_blocks = sum(b0[p0 + nc] - b0[p0] for f, (_, _, _, nc, p0) in
+                      zip(host.frames, host.frame.tolist()) if f.progressive)
+    prog_data = int(host.pseg[:, 1].sum()) if host.pseg.shape[0] else 0
     tables = host.huff.numel() * 4 + host.scan.numel() * 4 + host.seg.numel() * 4
+    ptables = host.phuff.numel() * 4 + host.pscan.numel() * 4 + host.pseg.numel() * 4
     blocks = host.n_blocks * 128
-    return {"jpeg_entropy": host.data.numel() + tables + blocks,
+    return {"jpeg_entropy": host.data.numel() - prog_data + tables + blocks - prog_blocks * 128,
+            "jpeg_progressive": prog_data + ptables + prog_blocks * 128,
             "jpeg_idct": blocks + host.quant.numel() * 4 + host.n_plane_bytes,
             "jpeg_color": host.n_plane_bytes + host.n_pixels * 3}
+
+
+def one_batch_launches(baseline: bool = True, rounds: int = 0) -> dict:
+    """The JPEG launches of one decode_jpegs batch: the baseline entropy
+    decode if the batch has baseline frames, one progressive launch per
+    round, one IDCT and one colour pass."""
+    return {"jpeg_entropy": int(baseline), "jpeg_progressive": rounds, "jpeg_idct": 1,
+            "jpeg_color": 1}
+
+
+def progressive_round_ms(dev, coef0, windows: int):
+    """(ms of each round by the profiler's kernel events, ms of the whole
+    decode) of ops/jpeg.jpeg_progressive on a batch on the card. The rounds
+    refine their blocks in place, so every call starts from a fresh copy of
+    the baseline decode's blocks `coef0`: the whole decode is the CUDA-event
+    median of copy + wrapper less that of the copy alone (`windows` windows
+    of one call each). The per-round split reads one wrapper call's kernel
+    events under torch.profiler (None if it recorded none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rodynrf_tpu_torch.ops import jpeg as K
+
+    work = coef0.clone()
+
+    def decode():
+        work.copy_(coef0)
+        K.jpeg_progressive(work, dev)
+
+    total = median_ms(decode, windows, 1)[0] - median_ms(lambda: work.copy_(coef0), windows, 1)[0]
+    per_round = None
+    for _ in range(3):  # a profiler run now and then records no device activity: redo it
+        work.copy_(coef0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            K.jpeg_progressive(work, dev)
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "progressive_kernel" in e.name)
+        if len(kernels) == len(dev.rounds):
+            per_round = [us / 1e3 for _, us in kernels]
+            break
+    return per_round, total
 
 
 def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20)) -> dict:
@@ -2427,18 +2494,25 @@ def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20)) -> dict:
     t0 = time.perf_counter()
     coef_p, st_p = J.entropy_decode_plain(host)
     plain_ms["jpeg_entropy"] = 1e3 * (time.perf_counter() - t0)
+    coef0_p = coef_p.clone()  # the baseline decode: where the progressive rounds start
+    t0 = time.perf_counter()
+    pst_p = J.progressive_decode_plain(coef_p, host)
+    plain_ms["jpeg_progressive"] = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
     planes_p = J.idct_plain(coef_p, host)
     plain_ms["jpeg_idct"] = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
     rgb_p = J.color_plain(planes_p, host)
     plain_ms["jpeg_color"] = 1e3 * (time.perf_counter() - t0)
-    if st_p.any():
+    if st_p.any() or pst_p.any():
         raise AssertionError(f"[14a] {label}: the plain decode flags a corrupt segment")
     coef, st = K.jpeg_entropy(dev)
+    coef0 = coef.clone()
+    pst = K.jpeg_progressive(coef, dev)
     planes = K.jpeg_idct(coef, dev)
     rgb = K.jpeg_color(planes, dev)
-    for name, a, b in (("blocks", coef, coef_p), ("status", st, st_p),
+    for name, a, b in (("baseline blocks", coef0, coef0_p), ("status", st, st_p),
+                       ("blocks", coef, coef_p), ("progressive status", pst, pst_p),
                        ("planes", planes, planes_p), ("pixels", rgb, rgb_p)):
         a = a.cpu()
         if a.shape != b.shape or not torch.equal(a, b):
@@ -2446,10 +2520,15 @@ def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20)) -> dict:
             raise AssertionError(f"[14a] {label}: the kernels' {name} differ from the plain "
                                  f"versions' ({n} elements)")
     nbytes = jpeg_bytes(host)
+    work = {"jpeg_entropy": host.seg.shape[0] > 0, "jpeg_progressive": bool(host.rounds),
+            "jpeg_idct": True, "jpeg_color": True}
+    nbytes = {k: v for k, v in nbytes.items() if work[k]}
     case = {"case": label, "frames": len(paths), "pixels": host.n_pixels,
             "blocks": host.n_blocks, "segments": int(host.seg.shape[0]),
+            "progressive_frames": sum(f.progressive for f in host.frames),
+            "progressive_segments": int(host.pseg.shape[0]), "rounds": len(host.rounds),
             "compressed_bytes": int(host.data.numel()), "max_abs_err": 0,
-            "plain_cpu_ms": plain_ms, "bytes": nbytes,
+            "plain_cpu_ms": {k: v for k, v in plain_ms.items() if work[k]}, "bytes": nbytes,
             "bound_ms": {k: 1e3 * v / HBM_BYTES_PER_S for k, v in nbytes.items()}}
     if device == "cuda":
         windows, n = reps
@@ -2457,11 +2536,18 @@ def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20)) -> dict:
             "jpeg_entropy": median_ms(lambda: K.jpeg_entropy(dev), windows, n)[0],
             "jpeg_idct": median_ms(lambda: K.jpeg_idct(coef, dev), windows, n)[0],
             "jpeg_color": median_ms(lambda: K.jpeg_color(planes, dev), windows, n)[0]}
+        if host.rounds:
+            case["ms_per_round"], case["ms"]["jpeg_progressive"] = progressive_round_ms(
+                dev, coef0, max(windows, 3))
+        case["ms"] = {k: v for k, v in case["ms"].items() if work[k]}
         case["ms_per_frame"] = {k: v / len(paths) for k, v in case["ms"].items()}
-    log(f"[14a] {label}: {len(paths)} frames, {host.n_pixels} pixels, "
-        f"{case['segments']} segments, {case['compressed_bytes']} compressed bytes: kernels = "
-        f"plain versions bit for bit; kernel ms {case.get('ms')}, bound ms "
-        f"{case['bound_ms']}, plain CPU ms {plain_ms}")
+    log(f"[14a] {label}: {len(paths)} frames ({case['progressive_frames']} progressive, "
+        f"{case['rounds']} rounds), {host.n_pixels} pixels, {case['segments']} + "
+        f"{case['progressive_segments']} segments, {case['compressed_bytes']} compressed "
+        f"bytes: kernels = "
+        f"plain versions bit for bit; kernel ms {case.get('ms')}, per round "
+        f"{case.get('ms_per_round')}, bound ms {case['bound_ms']}, plain CPU ms "
+        f"{case['plain_cpu_ms']}")
     return case
 
 
@@ -2502,13 +2588,17 @@ def davis_step_path(tr, path: str, smi: str, load_launches=None):
 
 def drive_davis(smi: str, device: str = "cuda"):
     """Phase 14: configs/DAVIS.txt from JPEG frames. Writes a DAVIS-layout
-    scene of DAVIS_SCENE's frames as baseline 4:2:0 JPEG, then 14a the
-    kernels against their plain versions, 14b the preprocessing commands
-    (flow, depth into dpt/, masks into epipolar_error_png/, 5-digit names),
-    14c the recipe through cli.main at its 16³ start (3 steps, evaluation,
-    checkpoint, --render_only) and a trainer's timed steps at 16³ and 256³.
-    Prints the `davis` line; returns the main-path records. (`device` and
-    the module's DAVIS_* sizes let the phase be rehearsed on the CPU.)"""
+    scene of DAVIS_SCENE's frames as baseline 4:2:0 JPEG and one of
+    DAVIS_PROGRESSIVE's as progressive JPEG, then 14a the kernels against
+    their plain versions (the fixtures, baseline and mixed with the
+    progressive ones; each scene's frames as one batch), 14b the
+    preprocessing commands (flow, depth into dpt/, masks into
+    epipolar_error_png/, 5-digit names), 14c the recipe through cli.main at
+    its 16³ start (3 steps, evaluation, checkpoint) and a trainer's timed
+    steps at 16³ and 256³, 14d the progressive scene through load_scene
+    (card = CPU) and cli.main (1 step, --render_test 0). Prints the `davis`
+    line; returns the main-path records. (`device` and the module's DAVIS_*
+    sizes let the phase be rehearsed on the CPU.)"""
     import shutil
     import tempfile
 
@@ -2534,11 +2624,19 @@ def drive_davis(smi: str, device: str = "cuda"):
                           frames_only=True)
         write_s = time.time() - t0
         frames = sorted((scene / "images").glob("*.jpg"))
+        PT, PH, PW = (DAVIS_PROGRESSIVE[k] for k in ("T", "H", "W"))
+        prog = root / "progressive"
+        t0 = time.time()
+        write_video_scene(str(prog), PT, PH, PW, seed=14, layout="davis", fmt="jpg",
+                          progressive=True)
+        write_s = {"baseline": write_s, "progressive": time.time() - t0}
+        prog_frames = sorted((prog / "images").glob("*.jpg"))
 
         # 14a. the kernels against their plain versions: the fixtures, the
         # scene's frames as the one batch the loader, flow and depth decode,
         # and one frame re-encoded with restart markers
-        fixtures = sorted(p for p in JPEG_FIXTURES.glob("*.jpg") if "progressive" not in p.name)
+        every = sorted(JPEG_FIXTURES.glob("*.jpg"))
+        fixtures = [p for p in every if "progressive" not in p.name]
         slow = (3, 2)  # windows × launches for the whole-frame cases
         cases = [jpeg_case("fixtures", fixtures, device),
                  jpeg_case(f"{T} frames {W}x{H} 4:2:0 q{DAVIS_QUALITY} (the loader's batch)",
@@ -2548,22 +2646,30 @@ def drive_davis(smi: str, device: str = "cuda"):
         write_jpeg(str(rst), first, DAVIS_QUALITY, "420", DAVIS_RESTART)
         cases.append(jpeg_case(f"{W}x{H} 4:2:0 q{DAVIS_QUALITY} restart {DAVIS_RESTART}",
                                [rst], device, slow))
+        cases.append(jpeg_case("fixtures, baseline + progressive", every, device))
+        cases.append(jpeg_case(f"{PT} frames {PW}x{PH} 4:2:0 q{DAVIS_QUALITY} progressive "
+                               f"(the loader's batch)", prog_frames, device, slow))
         # decode_jpegs on the two batches (host parse + copy + kernels +
         # status), and the kernels on the restart batch (the frames batch's
         # are its 14a case)
         batch = {}
-        for key, paths in (("frames", frames), ("restart", [rst] * T)):
+        for key, paths in (("frames", frames), ("restart", [rst] * T),
+                           ("progressive", prog_frames)):
             torch.cuda.synchronize()
             t0 = time.time()
             decode_jpegs(paths, device)
             torch.cuda.synchronize()
             batch_s = time.time() - t0
             host = J.pack([J.read_jpeg(str(p)) for p in paths])
-            rec = batch[key] = {"frames": T, "segments": int(host.seg.shape[0]),
-                                "decode_jpegs_s": batch_s,
-                                "decode_jpegs_ms_per_frame": 1e3 * batch_s / T}
+            n = len(paths)
+            rec = batch[key] = {"frames": n, "segments": int(host.seg.shape[0]),
+                                "progressive_segments": int(host.pseg.shape[0]),
+                                "rounds": len(host.rounds), "decode_jpegs_s": batch_s,
+                                "decode_jpegs_ms_per_frame": 1e3 * batch_s / n}
             if key == "frames":
                 rec["kernel_ms"] = cases[1].get("ms")
+            elif key == "progressive":
+                rec["kernel_ms"] = cases[4].get("ms")
             elif device == "cuda":
                 dev = host.to(device)
                 coef, _ = K.jpeg_entropy(dev)
@@ -2574,8 +2680,9 @@ def drive_davis(smi: str, device: str = "cuda"):
                     "jpeg_color": median_ms(lambda: K.jpeg_color(planes, dev), *slow)[0]}
                 del coef, planes, dev
             if rec.get("kernel_ms"):
-                rec["kernel_ms_per_frame"] = {k: v / T for k, v in rec["kernel_ms"].items()}
-            log(f"[14a] {T} frames as one batch ({key}: {rec['segments']} segments): "
+                rec["kernel_ms_per_frame"] = {k: v / n for k, v in rec["kernel_ms"].items()}
+            log(f"[14a] {n} frames as one batch ({key}: {rec['segments']} + "
+                f"{rec['progressive_segments']} progressive segments): "
                 f"decode_jpegs {batch_s * 1e3:.1f} ms (host parse + copy + kernels + status), "
                 f"kernels {rec.get('kernel_ms')}")
 
@@ -2604,10 +2711,11 @@ def drive_davis(smi: str, device: str = "cuda"):
                           **{k: rep[k] for k in ("read_s", "size", "f_found") if k in rep}}
             if not rep.get("finite", True):
                 raise AssertionError(f"14b {label}: a non-finite output")
-            want = 1 if label in ("flow", "depth") else 0
-            if any(v != want for v in pre[label]["jpeg_launches"].values()):
+            want = (one_batch_launches() if label in ("flow", "depth")
+                    else {k: 0 for k in JPEG_KERNELS})
+            if pre[label]["jpeg_launches"] != want:
                 raise AssertionError(f"14b {label}: JPEG launches {pre[label]['jpeg_launches']}"
-                                     f", {want} each expected (one batch per command)")
+                                     f", {want} expected (one batch per command)")
         if not any(pre["mask"].pop("f_found")):
             raise AssertionError("14b: LMedS accepted no fundamental matrix on any flow")
         for sub, n in (("flow", 2 * (T - 1)), ("dpt", T), ("epipolar_error_png", T)):
@@ -2635,10 +2743,6 @@ def drive_davis(smi: str, device: str = "cuda"):
             raise AssertionError(f"14c CLI: losses {rep['losses']}")
         if len(rep["psnrs"]) != T or not all(math.isfinite(p) for p in rep["psnrs"]):
             raise AssertionError(f"14c CLI: evaluation PSNRs {rep['psnrs']}")
-        rrep = cli_main(argv + ["--render_only", "1", "--ckpt", rep["ckpt"]], device)
-        if rrep["psnrs"] != rep["psnrs"]:
-            raise AssertionError(f"14c: render_only PSNRs {rrep['psnrs']} != the final "
-                                 f"evaluation's {rep['psnrs']}")
 
         args16 = config_parser(argv)
         reset_jpeg_counters()
@@ -2646,7 +2750,7 @@ def drive_davis(smi: str, device: str = "cuda"):
         sc = load_scene(args16, device)
         load_s = time.time() - t0
         load_launches = jpeg_counters()
-        if any(v != 1 for v in load_launches.values()):
+        if load_launches != one_batch_launches():
             raise AssertionError(f"14c: the loader launched {load_launches}, one batch expected")
         if sc.img_wh != (W // 2, H // 2) or sc.n_frames != T:
             raise AssertionError(f"14c: the loader gave {sc.img_wh} x {sc.n_frames}")
@@ -2668,16 +2772,83 @@ def drive_davis(smi: str, device: str = "cuda"):
         records.append(davis_step_path(tr, "davis_256", smi))
         del tr, sc
         torch.cuda.empty_cache()
+
+        # 14d. the progressive scene: the loader on the card against the
+        # loader on the CPU (plain versions), then cli.main, 1 step
+        pargv = [*DAVIS_RECIPE, "--datadir", str(prog), "--basedir", str(root / "log"),
+                 "--expname", "davis_progressive", "--n_iters", "1", "--N_voxel_t", str(PT),
+                 "--no_tensorboard", "1", "--render_test", "0", "--render_path", "0",
+                 "--progress_refresh_rate", "1", *ONE_PROCESS]
+        pargs = config_parser(pargv)
+        rounds = cases[4]["rounds"]
+        reset_jpeg_counters()
+        t0 = time.time()
+        psc = load_scene(pargs, device)
+        pload_s = time.time() - t0
+        pload = jpeg_counters()
+        if pload != one_batch_launches(False, rounds):
+            raise AssertionError(f"14d: the loader launched {pload}, "
+                                 f"{one_batch_launches(False, rounds)} expected")
+        cpu_sc = load_scene(pargs, "cpu")
+        if not np.array_equal(np.asarray(psc.rgbs_stack), np.asarray(cpu_sc.rgbs_stack)):
+            raise AssertionError("14d: the progressive scene loads differently on the card and "
+                                 "on the CPU")
+        tr = Trainer(pargs, cpu_sc, device=device)
+        pper = launches_per_step(tr.step_fn.S, tr.table_layouts())
+        del psc, cpu_sc, tr
+        torch.cuda.synchronize()
+        reset_counters()
+        reset_jpeg_counters()
+        t0 = time.time()
+        prep = cli_main(pargv, device)
+        pcli_s = time.time() - t0
+        plaunches = {**counters(), **jpeg_counters()}
+        if len(prep["losses"]) != 1 or not all(math.isfinite(x) for x in prep["losses"]):
+            raise AssertionError(f"14d CLI: losses {prep['losses']}")
+        # a CLI run ends in the reference's final evaluation of the training
+        # frames (train.py:2623-2641), --render_test 0 or not
+        if len(prep["psnrs"]) != PT or not all(math.isfinite(p) for p in prep["psnrs"]):
+            raise AssertionError(f"14d CLI: evaluation PSNRs {prep['psnrs']}")
+        pwant = {**pper, **one_batch_launches(False, rounds)}
+        if plaunches != pwant:
+            raise AssertionError(f"14d CLI: launches {plaunches} != {pwant}")
+        prog_record = {"path": "davis_progressive", "launches": plaunches,
+                       "launches_per_step": pper, "steps": 1}
+        records.append(prog_record)
+        # the DAVIS recipe's checkpoint (contract rays, --fea_pe 6, the
+        # time-embedded feature MLP) read back: the same PSNRs as the final
+        # evaluation
+        t0 = time.time()
+        prrep = cli_main(pargv + ["--render_only", "1", "--render_test", "1", "--ckpt",
+                                  prep["ckpt"]], device)
+        prender_s = time.time() - t0
+        if prrep["psnrs"] != prep["psnrs"]:
+            raise AssertionError(f"14d: render_only PSNRs {prrep['psnrs']} != the final "
+                                 f"evaluation's {prep['psnrs']}")
+        log(f"[14d] {PT} progressive {PW}x{PH} frames: load_scene {pload_s:.2f} s (card = CPU "
+            f"bit for bit), cli.main {pcli_s:.1f} s (loader {prep['loader_s']:.2f} s, final "
+            f"evaluation {prep['eval_s']:.1f} s), loss {prep['losses']}, launches {plaunches}; "
+            f"--render_only {prender_s:.1f} s, the same PSNRs ({smi})")
+        log(json.dumps({"main_path": prog_record}))
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     davis = {
         "scene": f"{T} frames {W}x{H}, DAVIS layout, baseline 4:2:0 JPEG q{DAVIS_QUALITY} "
                  f"(testing.write_jpeg), preprocessed on the card; trained at "
                  f"--downsample_train 2 ({W // 2}x{H // 2})",
+        "progressive_scene": f"{PT} frames {PW}x{PH}, DAVIS layout, progressive 4:2:0 JPEG "
+                             f"q{DAVIS_QUALITY} (testing.write_jpeg, libjpeg's standard "
+                             f"script); trained at --downsample_train 2",
+        "progressive": {"load_scene_s": pload_s, "load_launches": pload, "cli_s": pcli_s,
+                        "loader_s": prep["loader_s"], "train_s": prep["train_s"],
+                        "eval_s": prep["eval_s"], "losses": prep["losses"],
+                        "psnrs": prep["psnrs"], "launches": plaunches,
+                        "render_only_s": prender_s, "render_only_psnrs_equal": True},
         "write_s": write_s, "jpeg_cases": cases, "jpeg_batch": batch, "preprocess": pre,
         "cli": {"main_s": cli_s, "loader_s": rep["loader_s"], "train_s": rep["train_s"],
                 "eval_s": rep["eval_s"], "losses": rep["losses"], "psnrs": rep["psnrs"],
-                "render_only_psnrs_equal": True, "peak_gib": peak_cli / 2**30,
+                "peak_gib": peak_cli / 2**30,
                 "launches": launches, "load_scene_s": load_s},
         "steps": {r["path"]: {k: r[k] for k in ("grid", "layouts", "n_samples", "ms_per_step",
                                                 "rays_per_s", "peak_gib", "launches_per_step")}
@@ -2942,9 +3113,12 @@ def main() -> int:
         entry("segment_rows_sum", "segsum", "rodynrf_tpu_torch/csrc/segsum.cu",
               "rodynrf_tpu/ops/pallas_segsum.py:44", segsum),
     ]
-    frame_case = davis["jpeg_cases"][1]  # the scene's 1920×1080 4:2:0 frames as one batch
-    for name, source in (("jpeg_entropy", "jpeg_entropy.cu"), ("jpeg_idct", "jpeg_idct.cu"),
-                         ("jpeg_color", "jpeg_idct.cu")):
+    for name, source in (("jpeg_entropy", "jpeg_entropy.cu"),
+                         ("jpeg_progressive", "jpeg_progressive.cu"),
+                         ("jpeg_idct", "jpeg_idct.cu"), ("jpeg_color", "jpeg_idct.cu")):
+        # the scene's frames as one batch: 1920×1080 baseline, or 854×480
+        # progressive for the progressive decode
+        frame_case = davis["jpeg_cases"][4 if name == "jpeg_progressive" else 1]
         kernels.append({
             "name": name, "route": "cuda", "source": f"rodynrf_tpu_torch/csrc/{source}",
             "replaces": "rodynrf_tpu/data/video_dataset.py:29 (PIL's libjpeg-turbo on the host; "
@@ -2958,9 +3132,12 @@ def main() -> int:
             "plain_ms": frame_case["plain_cpu_ms"][name],
             "plain_device": "cpu", "bound_ms": frame_case["bound_ms"][name],
             "bound_by": "bytes", "library_ms": None, "case": frame_case["case"],
-            "cases": [{k: c[k] for k in ("case", "frames", "segments", "ms", "plain_cpu_ms",
-                                         "bound_ms")} for c in davis["jpeg_cases"]],
-            "batch_ms": {k: b["kernel_ms"][name] for k, b in davis["jpeg_batch"].items()},
+            "ms_per_round": frame_case.get("ms_per_round") if name == "jpeg_progressive"
+            else None,
+            "cases": [{k: c.get(k) for k in ("case", "frames", "segments", "rounds", "ms",
+                                             "plain_cpu_ms", "bound_ms")}
+                      for c in davis["jpeg_cases"]],
+            "batch_ms": {k: b["kernel_ms"].get(name) for k, b in davis["jpeg_batch"].items()},
         })
     for k in kernels:
         if k["launches"] == 0:

@@ -6,11 +6,14 @@ its PNGs with PIL (rodynrf_tpu/data/video_dataset.py:28-39, :69-81,
 data/llff.py:84-87, eval/evaluation.py:120-124). The card's machine has
 none of those libraries, so the port carries its own:
 
-- a PNG codec on zlib + numpy: 8-bit gray, gray + alpha, RGB, RGBA and
-  palette images, filters 0-4, not interlaced. Decoding is bit-identical to
-  PIL's; written files decode to the input under PIL. 16-bit images (the
-  depth preprocessing writes 16-bit gray, as cv2.imwrite of a uint16 array
-  does) are read and written as uint16 arrays;
+- a PNG codec on zlib + numpy: gray, gray + alpha, RGB, RGBA and palette
+  images of every bit depth PNG allows (gray 1/2/4-bit samples scaled to
+  8 bits as PIL's "1" and "L;2"/"L;4" modes scale them; palette indices of
+  1, 2 or 4 bits), filters 0-4, plain or Adam7-interlaced. Decoding is
+  bit-identical to PIL's; written files decode to the input under PIL.
+  16-bit images (the depth preprocessing writes 16-bit gray, as
+  cv2.imwrite of a uint16 array does) are read and written as uint16
+  arrays;
 - PIL's antialiased resize of 8-bit images (`pil_resize`: LANCZOS and
   BILINEAR), the separable filter of Pillow's Resample.c with its 22-bit
   fixed-point coefficients and rounding, horizontal pass first;
@@ -22,7 +25,7 @@ none of those libraries, so the port carries its own:
   `resize_cubic`) and its `remap` with INTER_CUBIC and BORDER_CONSTANT 0
   (`remap_cubic`), with cv2's coefficients and edge rules.
 
-Baseline JPEG frames (DAVIS ships its frames as JPEG) decode through
+Baseline and progressive JPEG frames (DAVIS ships its frames as JPEG) decode through
 data/jpeg.py, bit for bit as PIL's, as hand-written kernels on the card or
 their plain versions on the CPU (`read_frames` decodes a list of frames as
 one batch). Other formats raise, naming the file.
@@ -87,10 +90,33 @@ def _unfilter(raw: np.ndarray, H: int, W: int, bpp: int) -> np.ndarray:
     return P[1:, 1:].astype(np.uint8)
 
 
+# Adam7 passes: first row, first column, row step, column step
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+          (1, 0, 2, 1))
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+def _png_pixels(raw: np.ndarray, H: int, W: int, depth: int, ch: int):
+    """One (sub)image's filtered rows -> [H, W, ch] samples (uint8, or the
+    16-bit samples' big-endian bytes kept as [H, W, 2 ch]); sub-byte samples
+    unpacked most significant first. Returns (pixels, bytes consumed)."""
+    bits = ch * depth
+    rowbytes = -(-W * bits // 8)
+    n = H * (1 + rowbytes)
+    if bits >= 8:
+        return _unfilter(raw[:n], H, W, bits // 8), n
+    rows = _unfilter(raw[:n], H, rowbytes, 1)[..., 0]  # [H, rowbytes], bytes
+    b = np.unpackbits(rows, axis=1).reshape(H, rowbytes * 8 // depth, depth)
+    vals = (b * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
+    return vals[:, :W, None], n
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode a PNG: [H, W] for gray, [H, W, C] for gray + alpha (2), RGB
-    (3), RGBA (4); palette images expand to RGB or RGBA. uint8 for 8-bit
-    files, uint16 for 16-bit ones."""
+    (3), RGBA (4); palette images expand to RGB or RGBA. uint8 for files of
+    8 bits or fewer (gray of 1, 2 or 4 bits scaled to 0-255 as PIL's
+    convert("RGB") scales it), uint16 for 16-bit ones. Adam7-interlaced
+    files are deinterlaced."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIG:
@@ -114,26 +140,38 @@ def read_png(path: str) -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: PNG without IHDR")
     W, H, depth, ctype, _, _, interlace = hdr
-    if (depth, ctype) not in ((8, 0), (8, 2), (8, 3), (8, 4), (8, 6), (16, 0), (16, 2),
-                              (16, 4), (16, 6)) or interlace:
+    if depth not in _DEPTHS.get(ctype, ()) or interlace > 1:
         raise ValueError(f"{path}: PNG of bit depth {depth}, colour type {ctype}, interlace "
-                         f"{interlace} is not supported (8 or 16 bits, not interlaced only)")
-    bpp = _CHANNELS[ctype] * depth // 8  # bytes per pixel, the filters' unit
+                         f"{interlace} is not supported (an invalid combination)")
+    ch = _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = _unfilter(raw[: H * (1 + W * bpp)], H, W, bpp)
+    if not interlace:
+        img, _ = _png_pixels(raw, H, W, depth, ch)
+    else:
+        img = np.zeros((H, W, max(1, ch * depth // 8)), np.uint8)
+        off = 0
+        for y0, x0, dy, dx in _ADAM7:
+            h, w = -(-(H - y0) // dy) if H > y0 else 0, -(-(W - x0) // dx) if W > x0 else 0
+            if h and w:  # an empty pass has no bytes, not even filter bytes
+                img[y0::dy, x0::dx], n = _png_pixels(raw[off:], h, w, depth, ch)
+                off += n
     if depth == 16:  # samples are big-endian
         img = np.ascontiguousarray(img).view(">u2").astype(np.uint16)
     if ctype == 3:
         if plte is None:
             raise ValueError(f"{path}: palette PNG without PLTE")
         idx = img[..., 0]
-        rgb = plte[idx]
+        pal = np.zeros((256, 3), np.uint8)  # indices past the palette read black
+        pal[:len(plte)] = plte
+        rgb = pal[idx]
         if trns is None:
             return rgb
-        alpha = np.full(len(plte), 255, np.uint8)
+        alpha = np.full(256, 255, np.uint8)
         alpha[: len(trns)] = trns
         return np.concatenate([rgb, alpha[idx][..., None]], -1)
-    return img[..., 0] if _CHANNELS[ctype] == 1 else img
+    if depth < 8:  # gray: PIL's "1" (0/255), "L;2" (x 85) and "L;4" (x 17)
+        img = img * np.uint8(255 // ((1 << depth) - 1))
+    return img[..., 0] if ch == 1 else img
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -1,6 +1,6 @@
-"""Baseline JPEG decoding: the marker parser, the plain versions of the
-decoder's three stages, and `decode_jpegs`, which runs the stages as
-hand-written kernels on the card.
+"""JPEG decoding: the marker parser, the plain versions of the decoder's
+stages, and `decode_jpegs`, which runs the stages as hand-written kernels on
+the card.
 
 The JAX package reads its frames through PIL (rodynrf_tpu/data/
 video_dataset.py:28-39), so a frame decodes to libjpeg-turbo's default
@@ -10,7 +10,9 @@ library, so the port decodes JPEG itself, bit for bit as
 
 1. entropy decode: Huffman DC (with its predictor, reset at each restart
    marker) and AC symbols into int16 blocks in natural order
-   (jdhuff.c decode_mcu);
+   (jdhuff.c decode_mcu); a progressive frame's scans one after another
+   into the same blocks (jdphuff.c: DC first and refinement, AC first with
+   its end-of-band runs, AC refinement with its correction bits);
 2. dequantise, `JDCT_ISLOW` inverse DCT (jidctint.c: CONST_BITS 13,
    PASS1_BITS 2, its range limit), level shift and clamp, into uint8
    component planes;
@@ -20,14 +22,18 @@ library, so the port decodes JPEG itself, bit for bit as
    fixed-point YCbCr -> RGB (SCALEBITS 16); gray is repeated into three
    channels, Adobe RGB passes through.
 
-Taken: SOF0/SOF1 frames of 8-bit samples, 1 or 3 components, sampling
-factors up to 2×2, one scan, Huffman coding, 8-bit quantisation tables,
-restart intervals. Refused with a ValueError that names the file and the
-marker: progressive, lossless, hierarchical and arithmetic-coded frames,
-12-bit samples, 16-bit quantisation tables, four components, more than one
-scan, and truncated or corrupt data.
+Taken: SOF0/SOF1 frames of one scan and SOF2 (progressive) frames of any
+number of scans, Huffman-coded, 8-bit samples, 1 or 3 components, sampling
+factors up to 2×2, 8-bit quantisation tables, restart intervals; a
+progressive frame's scans may redefine the Huffman tables and the restart
+interval between them. Refused with a ValueError that names the file and
+the marker: lossless, hierarchical and arithmetic-coded frames, 12-bit
+samples, 16-bit quantisation tables, four components, a baseline frame of
+more than one scan, a progressive script that leaves any coefficient short
+of full precision (libjpeg-turbo would smooth such blocks,
+jdcoefct.c decompress_smooth_data), and truncated or corrupt data.
 
-Each stage has a plain version here (the Huffman decode a Python loop over
+Each stage has a plain version here (the Huffman decodes a Python loop over
 one entropy-coded segment at a time, the others vectorised torch integer
 ops); `rodynrf_tpu_torch/ops/jpeg.py` holds the kernels' wrappers, which take
 the plain versions only for tensors on the CPU.
@@ -58,13 +64,17 @@ NATURAL = np.array([
 LOOKAHEAD = 9
 HUFF_WORDS = (1 << LOOKAHEAD) + 18 + 18 + 256
 SCAN_WORDS = 2 + 5 * 3  # n scan components, MCUs per row, 3 × (plane, h, v, dc, ac)
+# a progressive scan: frame, scan components, units per row, Ss, Se, Ah, Al,
+# then 3 × (plane, h, v)
+PSCAN_WORDS = 7 + 3 * 3
 COLOR_GRAY, COLOR_YCC, COLOR_RGB = 0, 1, 2
 
 # status word of one entropy-coded segment
-STATUS_OK, STATUS_BAD_CODE, STATUS_BAD_AC, STATUS_SHORT = 0, 1, 2, 3
+STATUS_OK, STATUS_BAD_CODE, STATUS_BAD_AC, STATUS_SHORT, STATUS_BAD_BAND = 0, 1, 2, 3, 4
 STATUS_TEXT = {STATUS_BAD_CODE: "a Huffman code that is in no table",
                STATUS_BAD_AC: "an AC run past the 64th coefficient",
-               STATUS_SHORT: "the segment ends before its last MCU"}
+               STATUS_SHORT: "the segment ends before its last MCU",
+               STATUS_BAD_BAND: "a coefficient run or refinement past the scan's band"}
 
 _MARKER_NAMES = {0xC0 + i: f"SOF{i}" for i in range(16) if i not in (4, 8, 12)}
 _MARKER_NAMES.update({0xC4: "DHT", 0xC8: "JPG", 0xCC: "DAC", 0xD8: "SOI", 0xD9: "EOI",
@@ -72,12 +82,15 @@ _MARKER_NAMES.update({0xC4: "DHT", 0xC8: "JPG", 0xCC: "DAC", 0xD8: "SOI", 0xD9: 
 _MARKER_NAMES.update({0xD0 + i: f"RST{i}" for i in range(8)})
 _MARKER_NAMES.update({0xE0 + i: f"APP{i}" for i in range(16)})
 _REFUSED = {
-    **{0xC0 + i: "progressive" for i in (2, 6, 10, 14)},
     **{0xC0 + i: "lossless" for i in (3, 7, 11, 15)},
     0xC5: "hierarchical (differential sequential)",
-    0xC9: "arithmetic-coded", 0xCC: "arithmetic-coded", 0xC8: "reserved (JPG)",
+    0xC6: "hierarchical (differential progressive)",
+    0xC9: "arithmetic-coded", 0xCA: "progressive arithmetic-coded",
+    0xCD: "hierarchical arithmetic-coded", 0xCE: "hierarchical progressive arithmetic-coded",
+    0xCC: "arithmetic-coded", 0xC8: "reserved (JPG)",
     0xDC: "DNL (height defined after the scan)",
 }
+_TAKEN = "(Huffman-coded SOF0/SOF1/SOF2 only)"
 
 
 def _name(marker: int) -> str:
@@ -99,9 +112,32 @@ class Component:
 
 
 @dataclass
+class Scan:
+    """One scan of a progressive frame: its components (indices into the
+    frame's), spectral band Ss..Se and successive approximation Ah/Al, the
+    Huffman table each scan component reads (a snapshot taken at its SOS:
+    progressive files redefine tables between scans; none for a DC
+    refinement), the restart interval in force, its units (MCUs when
+    interleaved, else the component's blocks) and its segments."""
+
+    comps: List[int]
+    ss: int
+    se: int
+    ah: int
+    al: int
+    huff: np.ndarray  # [3, HUFF_WORDS] int32, one table per scan component
+    luts: list  # per scan component: the plain decoder's lookup, or None
+    restart: int
+    units_x: int
+    n_units: int
+    segments: List[bytes] = field(default_factory=list)
+
+
+@dataclass
 class JpegFrame:
-    """One parsed baseline frame: geometry, tables and its entropy-coded
-    segments (0xFF00 unstuffed, split at the restart markers)."""
+    """One parsed frame: geometry, tables and its entropy-coded segments
+    (0xFF00 unstuffed, split at the restart markers); a progressive frame
+    keeps them per scan in `scans`."""
 
     path: str
     H: int
@@ -116,6 +152,8 @@ class JpegFrame:
     n_mcu: int
     restart: int
     segments: List[bytes] = field(default_factory=list)
+    progressive: bool = False
+    scans: List[Scan] = field(default_factory=list)
 
     @property
     def hmax(self):
@@ -219,8 +257,9 @@ def _entropy_end(arr: np.ndarray, start: int, path: str):
 
 
 def parse_jpeg(data: bytes, path: str = "<bytes>") -> JpegFrame:
-    """Parse a baseline JPEG file; raises ValueError (naming `path` and the
-    marker) on what the decoder does not take or on truncated data."""
+    """Parse a baseline or progressive JPEG file; raises ValueError (naming
+    `path` and the marker) on what the decoder does not take or on
+    truncated data."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{path}: not a JPEG file (no SOI)")
     arr = np.frombuffer(data, np.uint8)
@@ -229,9 +268,10 @@ def parse_jpeg(data: bytes, path: str = "<bytes>") -> JpegFrame:
     dht: Dict[int, tuple] = {}
     comps: List[Component] = []
     H = W = restart = 0
-    jfif = adobe = False
+    jfif = adobe = progressive = False
     transform = 1
     frame = None
+    coef_bits = None  # progressive: [components, 64], jdcoefct.c coef_bits
     while True:
         while pos < n and data[pos] != 0xFF:  # libjpeg skips garbage before a marker
             pos += 1
@@ -242,8 +282,10 @@ def parse_jpeg(data: bytes, path: str = "<bytes>") -> JpegFrame:
         marker = data[pos]
         pos += 1
         if marker == 0xD9:  # EOI
-            if frame is None:
+            if frame is None or (progressive and not frame.scans):
                 raise ValueError(f"{path}: EOI before any scan")
+            if progressive:
+                _check_complete(coef_bits, path)
             return frame
         if 0xD0 <= marker <= 0xD7 or marker == 0x01:
             continue
@@ -257,7 +299,7 @@ def parse_jpeg(data: bytes, path: str = "<bytes>") -> JpegFrame:
         name = _name(marker)
         if marker in _REFUSED:
             raise ValueError(f"{path}: {name}: {_REFUSED[marker]} JPEG is not supported "
-                             f"(baseline SOF0/SOF1 Huffman only)")
+                             f"{_TAKEN}")
         if marker == 0xE0 and body[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
@@ -293,7 +335,9 @@ def parse_jpeg(data: bytes, path: str = "<bytes>") -> JpegFrame:
                 except ValueError as e:
                     raise ValueError(f"{path}: {e}") from None
                 p += 17 + nv
-        elif marker in (0xC0, 0xC1):  # SOF0 / SOF1
+        elif marker in (0xC0, 0xC1, 0xC2):  # SOF0 / SOF1 / SOF2
+            if comps:
+                raise ValueError(f"{path}: {name}: a second frame header")
             if len(body) < 6:
                 raise ValueError(f"{path}: {name}: truncated marker segment")
             prec, H, W, nc = struct.unpack(">BHHB", body[:6])
@@ -307,7 +351,6 @@ def parse_jpeg(data: bytes, path: str = "<bytes>") -> JpegFrame:
                 raise ValueError(f"{path}: {name}: empty image or DNL height")
             if len(body) < 6 + 3 * nc:
                 raise ValueError(f"{path}: {name}: truncated marker segment")
-            comps = []
             for i in range(nc):
                 cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
                 h, v = hv >> 4, hv & 15
@@ -315,11 +358,26 @@ def parse_jpeg(data: bytes, path: str = "<bytes>") -> JpegFrame:
                     raise ValueError(f"{path}: {name}: sampling {h}x{v} is not supported "
                                      f"(factors 1 or 2)")
                 comps.append(Component(cid, h, v, tq))
+            progressive = marker == 0xC2
+            coef_bits = np.full((nc, 64), -1, np.int64)
         elif marker == 0xDD:  # DRI
             (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xDA:  # SOS
             if not comps:
                 raise ValueError(f"{path}: SOS before SOF")
+            if progressive:
+                if frame is None:
+                    frame = _frame(path, H, W, comps, {}, {}, restart, jfif, adobe, transform)
+                    frame.progressive = True
+                scan = _progressive_scan(frame, body, qt, dht, restart, coef_bits, path)
+                scan.segments, pos = _entropy_end(arr, pos, path)
+                want = -(-scan.n_units // restart) if restart else 1
+                if len(scan.segments) != want:
+                    raise ValueError(f"{path}: SOS: scan {len(frame.scans)}: "
+                                     f"{len(scan.segments)} entropy-coded segments, {want} "
+                                     f"expected (truncated or corrupt restart markers)")
+                frame.scans.append(scan)
+                continue
             if frame is not None:
                 raise ValueError(f"{path}: SOS: more than one scan is not supported")
             ns = body[0]
@@ -353,6 +411,74 @@ def parse_jpeg(data: bytes, path: str = "<bytes>") -> JpegFrame:
         # APPn other than JFIF/Adobe, COM and other markers are skipped
 
 
+def _progressive_scan(frame: JpegFrame, body: bytes, qt, dht, restart, coef_bits,
+                      path) -> Scan:
+    """A progressive SOS header checked as jdphuff.c start_pass_phuff_decoder
+    checks it, its tables snapshotted, coef_bits advanced (jdphuff.c) and the
+    quantisation table of each component latched at its first scan
+    (jdinput.c latch_quant_tables)."""
+    k = len(frame.scans)
+    ns = body[0] if body else 0
+    if not 1 <= ns <= len(frame.comps) or len(body) < 1 + 2 * ns + 3:
+        raise ValueError(f"{path}: SOS: scan {k}: malformed header ({ns} components)")
+    ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
+    ah, al = a >> 4, a & 15
+    dc = ss == 0
+    bad = (se != 0) if dc else (ss > se or se > 63 or ns != 1)
+    if bad or (ah != 0 and al != ah - 1) or al > 13:
+        raise ValueError(f"{path}: SOS: scan {k}: invalid progression Ss={ss} Se={se} Ah={ah} "
+                         f"Al={al} (jdphuff.c start_pass_phuff_decoder)")
+    index = {c.cid: i for i, c in enumerate(frame.comps)}
+    idx, huff, luts = [], np.zeros((3, HUFF_WORDS), np.int32), []
+    for j in range(ns):
+        cid, t = body[1 + 2 * j:3 + 2 * j]
+        ci = index.get(cid)
+        if ci is None or ci in idx:
+            raise ValueError(f"{path}: SOS: scan {k}: unknown or repeated component {cid}")
+        idx.append(ci)
+        slot = None if (dc and ah) else ((t >> 4) if dc else 4 + (t & 15))
+        if slot is None:
+            luts.append(None)  # a DC refinement reads raw bits
+        elif slot not in dht:
+            raise ValueError(f"{path}: SOS: scan {k}: Huffman table {slot & 3} "
+                             f"({'AC' if slot > 3 else 'DC'}) is not defined")
+        else:
+            huff[j], lut = dht[slot]
+            luts.append(lut)
+        c = frame.comps[ci]
+        if (coef_bits[ci] < 0).all():  # the component's first scan
+            if c.tq not in qt:
+                raise ValueError(f"{path}: SOS: quantisation table {c.tq} is not defined")
+            frame.quant[ci] = qt[c.tq]
+        coef_bits[ci, ss:se + 1] = al
+    if ns > 1:
+        units_x, n_units = frame.mcus_x, frame.n_mcu
+    else:
+        c = frame.comps[idx[0]]
+        units_x = -(-c.cw // 8)
+        n_units = units_x * -(-c.ch // 8)
+    return Scan(idx, ss, se, ah, al, huff, luts, restart, units_x, n_units)
+
+
+def _check_complete(coef_bits: np.ndarray, path: str) -> None:
+    """Refuse a progressive frame whose scans leave a coefficient short of
+    full precision (coef_bits != 0): libjpeg-turbo then smooths its blocks
+    (jdcoefct.c smoothing_ok, decompress_smooth_data), which the port does
+    not do. Names the first such band."""
+    bad = np.argwhere(coef_bits != 0)
+    if not len(bad):
+        return
+    ci, k0 = (int(x) for x in bad[0])
+    v = int(coef_bits[ci, k0])
+    k1 = k0
+    while k1 < 63 and coef_bits[ci, k1 + 1] == v:
+        k1 += 1
+    what = "never sent" if v < 0 else f"left {v} bits short (never refined to Al=0)"
+    raise ValueError(f"{path}: EOI: an incomplete progressive script: component {ci} "
+                     f"coefficients {k0}-{k1} {what}; block smoothing is not supported "
+                     f"(complete scripts only)")
+
+
 def _frame(path, H, W, comps, qt, dht, restart, jfif, adobe, transform) -> JpegFrame:
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     interleaved = len(comps) > 1
@@ -378,7 +504,7 @@ def _frame(path, H, W, comps, qt, dht, restart, jfif, adobe, transform) -> JpegF
     for slot, (packed, lut) in dht.items():
         huff[slot] = packed
         luts[slot] = lut
-    quant = np.stack([qt[c.tq] for c in comps])
+    quant = np.stack([qt.get(c.tq, np.zeros(64, np.int32)) for c in comps])
     return JpegFrame(path, H, W, comps, color, quant, huff, luts, interleaved, mcus_x,
                      mcus_x * mcus_y, restart)
 
@@ -411,8 +537,8 @@ def jpeg_size(path: str):
             (length,) = struct.unpack(">H", head)
             if marker in _REFUSED:
                 raise ValueError(f"{path}: {_name(marker)}: {_REFUSED[marker]} JPEG is not "
-                                 f"supported (baseline SOF0/SOF1 Huffman only)")
-            if marker in (0xC0, 0xC1):
+                                 f"supported {_TAKEN}")
+            if marker in (0xC0, 0xC1, 0xC2):
                 body = f.read(5)
                 if len(body) < 5:
                     raise ValueError(f"{path}: {_name(marker)}: truncated marker segment")
@@ -429,14 +555,24 @@ def jpeg_size(path: str):
 
 @dataclass
 class JpegBatch:
-    """Frames packed for the three stages (host tensors until `.to`).
+    """Frames packed for the stages (host tensors until `.to`).
 
     data  uint8 [bytes]: every segment's unstuffed bytes, back to back;
-    seg   int32 [S, 5]: byte offset, byte length, frame, first MCU, MCUs;
+    seg   int32 [S, 5]: the baseline frames' segments: byte offset, byte
+          length, frame, first MCU, MCUs;
     scan  int32 [F, SCAN_WORDS]: scan components, MCUs per row, then per
           scan component its plane, h, v (1, 1 when not interleaved), DC
-          and AC table slot;
+          and AC table slot (zeros for a progressive frame);
     huff  int32 [F, 8, HUFF_WORDS];
+    pseg  int32 [Sp, 5]: the progressive frames' segments, round after
+          round: byte offset, byte length, progressive scan, first unit
+          (MCU when the scan is interleaved, else block), units;
+    pscan int32 [Np, PSCAN_WORDS]: frame, scan components, units per row,
+          Ss, Se, Ah, Al, then per scan component its plane, h, v (1, 1
+          when not interleaved);
+    phuff int32 [Np, 3, HUFF_WORDS]: each scan component's table;
+    rounds [(first segment, segments)]: round k holds scan k of every
+          progressive frame that has one, launched after round k - 1;
     plane_block0 int64 [P + 1]: each component plane's first block;
     plane int32 [P, 8]: blocks per row, block rows, samples per row, rows,
           horizontal and vertical upsampling factor, fancy flag, frame;
@@ -450,6 +586,9 @@ class JpegBatch:
     seg: torch.Tensor
     scan: torch.Tensor
     huff: torch.Tensor
+    pseg: torch.Tensor
+    pscan: torch.Tensor
+    phuff: torch.Tensor
     plane_block0: torch.Tensor
     plane: torch.Tensor
     plane_pix0: torch.Tensor
@@ -460,20 +599,27 @@ class JpegBatch:
     n_plane_bytes: int
     n_pixels: int
     frames: List[JpegFrame]
+    rounds: List[tuple] = field(default_factory=list)
+    scans: List[Scan] = field(default_factory=list)  # row i of pscan
+
+    _TENSORS = ("data", "seg", "scan", "huff", "pseg", "pscan", "phuff", "plane_block0",
+                "plane", "plane_pix0", "quant", "frame", "frame_pix0")
 
     def to(self, device) -> "JpegBatch":
-        kw = {k: getattr(self, k).to(device) for k in
-              ("data", "seg", "scan", "huff", "plane_block0", "plane", "plane_pix0", "quant",
-               "frame", "frame_pix0")}
+        kw = {k: getattr(self, k).to(device) for k in self._TENSORS}
         return JpegBatch(**kw, n_blocks=self.n_blocks, n_plane_bytes=self.n_plane_bytes,
-                         n_pixels=self.n_pixels, frames=self.frames)
+                         n_pixels=self.n_pixels, frames=self.frames, rounds=self.rounds,
+                         scans=self.scans)
 
 
 def pack(frames: Sequence[JpegFrame]) -> JpegBatch:
     """Lay parsed frames out as one batch (`JpegBatch`): segments, tables,
-    component planes and output pixels back to back, frame after frame."""
+    component planes and output pixels back to back, frame after frame; the
+    progressive frames' segments grouped into rounds of scans."""
     data, seg, scan, planes, plane_block0, plane_pix0, quant, fr, pix0 = ([] for _ in range(9))
     nbytes = nblocks = npix = nplane = 0
+    by_round: Dict[int, list] = {}  # round -> [(segment bytes, scan row, first unit, units)]
+    pscan, phuff, scans = [], [], []
     for f_i, f in enumerate(frames):
         p0 = len(planes)
         sc = [len(f.comps), f.mcus_x]
@@ -488,7 +634,7 @@ def pack(frames: Sequence[JpegFrame]) -> JpegBatch:
             nplane += c.bw * c.bh * 64
             h, v = (c.h, c.v) if f.interleaved else (1, 1)
             sc += [p0 + c_i, h, v, c.dc, 4 + c.ac]
-        scan.append(sc + [0] * (SCAN_WORDS - len(sc)))
+        scan.append([0] * SCAN_WORDS if f.progressive else sc + [0] * (SCAN_WORDS - len(sc)))
         fr.append([f.H, f.W, f.color, len(f.comps), p0])
         pix0.append(npix)
         npix += f.H * f.W
@@ -496,6 +642,26 @@ def pack(frames: Sequence[JpegFrame]) -> JpegBatch:
         for s_i, s in enumerate(f.segments):
             m0 = s_i * per
             seg.append([nbytes, len(s), f_i, m0, min(per, f.n_mcu - m0)])
+            data.append(s)
+            nbytes += len(s)
+        for k, ps in enumerate(f.scans):
+            row = [f_i, len(ps.comps), ps.units_x, ps.ss, ps.se, ps.ah, ps.al]
+            for ci in ps.comps:
+                c = f.comps[ci]
+                row += [p0 + ci, c.h, c.v] if len(ps.comps) > 1 else [p0 + ci, 1, 1]
+            pscan.append(row + [0] * (PSCAN_WORDS - len(row)))
+            phuff.append(ps.huff)
+            scans.append(ps)
+            per = ps.restart or ps.n_units
+            for s_i, s in enumerate(ps.segments):
+                m0 = s_i * per
+                by_round.setdefault(k, []).append((s, len(pscan) - 1, m0,
+                                                   min(per, ps.n_units - m0)))
+    pseg, rounds = [], []
+    for k in sorted(by_round):
+        rounds.append((len(pseg), len(by_round[k])))
+        for s, row, m0, nu in by_round[k]:
+            pseg.append([nbytes, len(s), row, m0, nu])
             data.append(s)
             nbytes += len(s)
     if nbytes >= 2 ** 31:  # the segment offsets are int32
@@ -508,13 +674,18 @@ def pack(frames: Sequence[JpegFrame]) -> JpegBatch:
         seg=torch.tensor(seg, dtype=torch.int32).reshape(-1, 5),
         scan=torch.tensor(scan, dtype=torch.int32).reshape(-1, SCAN_WORDS),
         huff=torch.from_numpy(np.stack([f.huff for f in frames])),
+        pseg=torch.tensor(pseg, dtype=torch.int32).reshape(-1, 5),
+        pscan=torch.tensor(pscan, dtype=torch.int32).reshape(-1, PSCAN_WORDS),
+        phuff=torch.from_numpy(np.stack(phuff) if phuff
+                               else np.zeros((0, 3, HUFF_WORDS), np.int32)),
         plane_block0=torch.tensor(plane_block0, dtype=torch.int64),
         plane=torch.tensor(planes, dtype=torch.int32).reshape(-1, 8),
         plane_pix0=torch.tensor(plane_pix0, dtype=torch.int64),
         quant=torch.from_numpy(np.stack(quant).astype(np.int32)),
         frame=torch.tensor(fr, dtype=torch.int32).reshape(-1, 5),
         frame_pix0=torch.tensor(pix0, dtype=torch.int64),
-        n_blocks=nblocks, n_plane_bytes=nplane, n_pixels=npix, frames=list(frames))
+        n_blocks=nblocks, n_plane_bytes=nplane, n_pixels=npix, frames=list(frames),
+        rounds=rounds, scans=scans)
 
 
 # ---------------------------------------------------------------------------
@@ -600,6 +771,158 @@ def entropy_decode_plain(batch: JpegBatch):
             comps.append((int(b0[pl]), int(plane[pl, 0]), h, v, luts[dc], luts[ac]))
         status[s_i] = _decode_segment(data[off:off + n], comps, coef, m0, nmcu, int(sc[1]))
     return torch.from_numpy(coef), torch.from_numpy(status)
+
+
+def _wrap16(x: int) -> int:
+    """x as a JCOEF (int16) stores it."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _decode_progressive_segment(seg: bytes, comps, coef: np.ndarray, m0: int, nu: int,
+                                units_x: int, ss: int, se: int, ah: int, al: int) -> int:
+    """Decode one entropy-coded segment of a progressive scan into coef
+    [blocks, 64] (natural order; earlier scans' values in place), as
+    jdphuff.c's decode_mcu_DC_first / _DC_refine / _AC_first / _AC_refine;
+    returns its status word. comps: per scan component (first block, blocks
+    per row, h, v, lookup or None); units: MCUs of an interleaved scan,
+    blocks of the one component otherwise (h = v = 1). The DC predictors
+    and the end-of-band run start at 0 in every segment."""
+    nbits = 8 * len(seg)
+    raw = np.frombuffer(seg + bytes(2), np.uint8).astype(np.int64)
+    w24 = ((raw[:-2] << 16) | (raw[1:-1] << 8) | raw[2:]).tolist() + [0] * 4096
+    limit = len(w24) * 8 - 32
+    nat = NATURAL.tolist()
+    p1, m1 = 1 << al, -1 << al
+    pred = [0] * len(comps)
+    eobrun = 0
+    p = 0
+
+    def bit():
+        nonlocal p
+        b = (w24[p >> 3] >> (23 - (p & 7))) & 1
+        p += 1
+        return b
+
+    def bits(n):
+        nonlocal p
+        x = ((w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - n)
+        p += n
+        return x
+
+    for m in range(m0, m0 + nu):
+        my, mx = divmod(m, units_x)
+        for ci, (b0, bw, h, v, lut) in enumerate(comps):
+            for yy in range(v):
+                for xx in range(h):
+                    row = coef[b0 + (my * v + yy) * bw + mx * h + xx]
+                    if ss == 0 and ah == 0:  # DC first
+                        e = lut[(w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+                        if not e:
+                            return STATUS_BAD_CODE
+                        p += e >> 8
+                        t = e & 255
+                        x = 0
+                        if t:
+                            x = bits(t)
+                            if x < (1 << (t - 1)):
+                                x += (-1 << t) + 1
+                        pred[ci] += x
+                        row[0] = _wrap16(pred[ci] << al)
+                    elif ss == 0:  # DC refinement: one raw bit
+                        if bit():
+                            row[0] |= p1
+                    elif ah == 0:  # AC first
+                        if eobrun:
+                            eobrun -= 1
+                            continue
+                        k = ss
+                        while k <= se:
+                            e = lut[(w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+                            if not e:
+                                return STATUS_BAD_CODE
+                            p += e >> 8
+                            r, t = (e & 255) >> 4, e & 15
+                            if t:
+                                k += r
+                                if k > se:
+                                    return STATUS_BAD_BAND
+                                x = bits(t)
+                                if x < (1 << (t - 1)):
+                                    x += (-1 << t) + 1
+                                row[nat[k]] = _wrap16(x << al)
+                            elif r == 15:
+                                k += 15
+                            else:
+                                eobrun = (1 << r) + (bits(r) if r else 0) - 1
+                                break
+                            k += 1
+                    else:  # AC refinement
+                        k = ss
+                        if eobrun == 0:
+                            while k <= se:
+                                e = lut[(w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+                                if not e:
+                                    return STATUS_BAD_CODE
+                                p += e >> 8
+                                r, t = (e & 255) >> 4, e & 15
+                                val = 0
+                                if t:  # a newly nonzero coefficient, its sign bit
+                                    val = p1 if bit() else m1
+                                elif r != 15:
+                                    eobrun = (1 << r) + (bits(r) if r else 0)
+                                    break
+                                # correction bits for nonzero coefficients; the
+                                # run counts zero-history coefficients only
+                                while k <= se:
+                                    z = nat[k]
+                                    c = int(row[z])
+                                    if c:
+                                        if bit() and not c & p1:
+                                            row[z] = _wrap16(c + (p1 if c >= 0 else m1))
+                                    else:
+                                        r -= 1
+                                        if r < 0:
+                                            break
+                                    k += 1
+                                if val:
+                                    if k > se:
+                                        return STATUS_BAD_BAND
+                                    row[nat[k]] = val
+                                k += 1
+                        if eobrun:  # the rest of the band: correction bits only
+                            while k <= se:
+                                z = nat[k]
+                                c = int(row[z])
+                                if c and bit() and not c & p1:
+                                    row[z] = _wrap16(c + (p1 if c >= 0 else m1))
+                                k += 1
+                            eobrun -= 1
+        if p > nbits or p > limit:
+            return STATUS_SHORT
+    return STATUS_OK
+
+
+def progressive_decode_plain(coef: torch.Tensor, batch: JpegBatch) -> torch.Tensor:
+    """Decode every progressive segment of the batch into coef int16
+    [n_blocks, 64] in place, round after round (the Python loop, one
+    segment at a time); returns the status words int32 [progressive
+    segments]."""
+    out = coef.numpy()
+    data = batch.data.numpy().tobytes()
+    pseg = batch.pseg.numpy()
+    pscan = batch.pscan.numpy()
+    plane = batch.plane.numpy()
+    b0 = batch.plane_block0.numpy()
+    status = np.zeros(len(pseg), np.int32)
+    for s_i, (off, n, row, m0, nu) in enumerate(pseg.tolist()):
+        f_i, ns, units_x, ss, se, ah, al = (int(x) for x in pscan[row, :7])
+        comps = []
+        for j in range(ns):
+            pl, h, v = (int(x) for x in pscan[row, 7 + 3 * j:10 + 3 * j])
+            comps.append((int(b0[pl]), int(plane[pl, 0]), h, v, batch.scans[row].luts[j]))
+        status[s_i] = _decode_progressive_segment(data[off:off + n], comps, out, m0, nu,
+                                                  units_x, ss, se, ah, al)
+    return torch.from_numpy(status)
 
 
 _FIX = dict(c0_298631336=2446, c0_390180644=3196, c0_541196100=4433, c0_765366865=6270,
@@ -714,27 +1037,40 @@ def color_plain(planes: torch.Tensor, batch: JpegBatch) -> torch.Tensor:
     return out
 
 
-def check_status(status: torch.Tensor, batch: JpegBatch) -> None:
+def check_status(status: torch.Tensor, batch: JpegBatch, progressive: bool = False) -> None:
     """Raise a ValueError naming the file for the first segment whose
-    status word is not 0 (`batch` on the host: one copy of the words)."""
+    status word is not 0 (`batch` on the host: one copy of the words); the
+    baseline segments' words, or with `progressive` the progressive ones'."""
     status = status.cpu()
     bad = torch.nonzero(status).flatten().tolist()
-    if bad:
-        s = bad[0]
-        f_i = int(batch.seg[s, 2])
-        first = int((batch.seg[:, 2] == f_i).nonzero()[0])
-        code = int(status[s])
+    if not bad:
+        return
+    s = bad[0]
+    code = int(status[s])
+    what = STATUS_TEXT.get(code, f"status {code}")
+    if progressive:
+        row = int(batch.pseg[s, 2])
+        f_i = int(batch.pscan[row, 0])
+        k = row - int((batch.pscan[:, 0] == f_i).nonzero()[0])
+        first = min(i for i in range(len(batch.pseg)) if int(batch.pseg[i, 2]) == row)
         raise ValueError(f"{batch.frames[f_i].path}: SOS: corrupt entropy-coded data in "
-                         f"segment {s - first}: {STATUS_TEXT.get(code, f'status {code}')}")
+                         f"scan {k}, segment {s - first}: {what}")
+    f_i = int(batch.seg[s, 2])
+    first = int((batch.seg[:, 2] == f_i).nonzero()[0])
+    raise ValueError(f"{batch.frames[f_i].path}: SOS: corrupt entropy-coded data in "
+                     f"segment {s - first}: {what}")
 
 
 def decode_jpegs(paths: Sequence[str], device="cuda") -> List[torch.Tensor]:
-    """Decode baseline JPEG files as one batch: a list of [H, W, 3] uint8
-    tensors on `device`, equal bit for bit to PIL's
-    `Image.open(p).convert("RGB")`. On the card the three stages run as the
-    kernels of ops/jpeg.py; `device="cpu"` runs their plain versions. Raises
-    RuntimeError when the card is asked for and there is none, ValueError
-    (naming the file and the marker) on what the decoder does not take."""
+    """Decode baseline and progressive JPEG files as one batch: a list of
+    [H, W, 3] uint8 tensors on `device`, equal bit for bit to PIL's
+    `Image.open(p).convert("RGB")`. On the card the stages run as the
+    kernels of ops/jpeg.py: the baseline entropy decode, the progressive
+    scans round after round into the same blocks, then the IDCT and the
+    colour pass over every frame; the status words are read once.
+    `device="cpu"` runs their plain versions. Raises RuntimeError when the
+    card is asked for and there is none, ValueError (naming the file and the
+    marker) on what the decoder does not take."""
     from ..ops import jpeg as kernels
 
     device = check_device(device)
@@ -743,8 +1079,10 @@ def decode_jpegs(paths: Sequence[str], device="cuda") -> List[torch.Tensor]:
     host = pack([read_jpeg(p) for p in paths])
     batch = host.to(device)
     coef, status = kernels.jpeg_entropy(batch)
+    pstatus = kernels.jpeg_progressive(coef, batch)
     rgb = kernels.jpeg_color(kernels.jpeg_idct(coef, batch), batch)
     check_status(status, host)
+    check_status(pstatus, host, progressive=True)
     out = []
     for f_i, f in enumerate(host.frames):
         o = int(host.frame_pix0[f_i]) * 3

@@ -86,13 +86,14 @@ def golden_trainer(repo: str, device: str = "cpu"):
 
 
 def write_video_scene(root: str, T: int, H: int, W: int, seed: int = 0, layout: str = "nvidia",
-                      fmt: str = "png", frames_only: bool = False):
+                      fmt: str = "png", frames_only: bool = False, progressive=False):
     """Write a synthetic scene of T frames at H×W in a loader's on-disk
     layout: the Nvidia one (images/%03d.<fmt>, motion_masks/%03d.png,
     disp/%03d.npy, flow/%03d_{fwd,bwd}.npz) or, with layout="davis", the
     DAVIS one (5-digit names, epipolar_error_png/ masks, dpt/ disparity).
     Frames are the synthetic scene's with seeded texture, as PNG or (fmt
-    "jpg") baseline 4:2:0 JPEG at quality 90; masks gray PNG; flows carry a
+    "jpg") 4:2:0 JPEG at quality 90, baseline or with `progressive` (as
+    `write_jpeg` takes it) progressive; masks gray PNG; flows carry a
     seeded consistency mask; poses_bounds.npy holds the poses. With
     frames_only, images/ alone (a raw video for the preprocessing commands).
     Returns the in-memory scene it was made from."""
@@ -118,7 +119,7 @@ def write_video_scene(root: str, T: int, H: int, W: int, seed: int = 0, layout: 
         img = (img * 255).astype(np.uint8)
         name = os.path.join(root, "images", f"{t:0{z}d}.{fmt}")
         if fmt == "jpg":
-            write_jpeg(name, img, quality=90, subsampling="420")
+            write_jpeg(name, img, quality=90, subsampling="420", progressive=progressive)
         else:
             write_png(name, img)
         if frames_only:
@@ -227,14 +228,177 @@ def _pack_bits(vals, lens) -> bytes:
     return np.insert(by, ff + 1, 0).tobytes()
 
 
+def _scan_script(progressive, ncomp: int):
+    """The scans of a progressive frame, each (components, Ss, Se, Ah, Al):
+    True or "standard" is libjpeg's jcparam.c jpeg_simple_progression (10
+    scans for YCbCr, 6 for gray); "spectral" spectral selection only (DC,
+    then AC 1-5 and 6-63 per component); "dc_sa" DC successive
+    approximation from Al = 2, then AC 1-63 per component."""
+    comps = tuple(range(ncomp))
+    if progressive in (True, "standard"):
+        if ncomp == 3:
+            return [(comps, 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                    ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                    (comps, 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                    ((0,), 1, 63, 1, 0)]
+        return [(comps, 0, 0, 0, 1), (comps, 1, 5, 0, 2), (comps, 6, 63, 0, 2),
+                (comps, 1, 63, 2, 1), (comps, 0, 0, 1, 0), (comps, 1, 63, 1, 0)]
+    if progressive == "spectral":
+        return [(comps, 0, 0, 0, 0)] + [s for c in comps for s in (((c,), 1, 5, 0, 0),
+                                                                     ((c,), 6, 63, 0, 0))]
+    if progressive == "dc_sa":
+        return [(comps, 0, 0, 0, 2), (comps, 0, 0, 2, 1), (comps, 0, 0, 1, 0)] + [
+            ((c,), 1, 63, 0, 0) for c in comps]
+    raise ValueError(f"write_jpeg: unknown progressive script {progressive!r}")
+
+
+class _ScanCoder:
+    """jcphuff.c's encoder of one scan segment as a list of events: (table,
+    symbol, extra bits, their count), table -1 for raw bits, in stream
+    order. Keeps the end-of-band run and the buffered correction bits."""
+
+    def __init__(self, al):
+        self.al, self.ev, self.eobrun, self.be = al, [], 0, []
+
+    def sym(self, tab, s, extra=0, n=0):
+        self.ev.append((tab, s, extra, n))
+
+    def raw(self, bits):
+        self.ev.extend((-1, 0, b, 1) for b in bits)
+
+    def emit_eobrun(self, tab):
+        if self.eobrun:
+            n = self.eobrun.bit_length() - 1
+            self.sym(tab, n << 4, self.eobrun, n)
+            self.eobrun = 0
+            self.raw(self.be)
+            self.be = []
+
+    def ac_first(self, tab, band):
+        """One block's band (natural values in zig-zag order Ss..Se)."""
+        al, r = self.al, 0
+        for v in band:
+            t = (-v) >> al if v < 0 else v >> al
+            if t == 0:
+                r += 1
+                continue
+            self.emit_eobrun(tab)
+            while r > 15:
+                self.sym(tab, 0xF0)
+                r -= 16
+            n = t.bit_length()
+            self.sym(tab, (r << 4) + n, t if v > 0 else ~t, n)
+            r = 0
+        if r:
+            self.eobrun += 1
+            if self.eobrun == 0x7FFF:
+                self.emit_eobrun(tab)
+
+    def ac_refine(self, tab, band):
+        al = self.al
+        absv = [abs(v) >> al for v in band]
+        eob = max((k for k, t in enumerate(absv) if t == 1), default=-1)
+        r, br = 0, []
+        for k, t in enumerate(absv):
+            if t == 0:
+                r += 1
+                continue
+            while r > 15 and k <= eob:
+                self.emit_eobrun(tab)
+                self.sym(tab, 0xF0)
+                r -= 16
+                self.raw(br)
+                br = []
+            if t > 1:
+                br.append(t & 1)
+                continue
+            self.emit_eobrun(tab)
+            self.sym(tab, (r << 4) + 1, 0 if band[k] < 0 else 1, 1)
+            self.raw(br)
+            br, r = [], 0
+        if r or br:
+            self.eobrun += 1
+            self.be += br
+            if self.eobrun == 0x7FFF or len(self.be) > 1000 - 64 + 1:
+                self.emit_eobrun(tab)
+
+
+def _progressive_scans(blocks, samp, mx, my, planes_hw, restart_interval, script):
+    """Encode the scans of `script` over the components' zig-zag blocks
+    ([my, mx, v, h, 64] each, the MCU grid's): per scan its header fields,
+    the Huffman tables it defines (a flat canonical code over the symbols
+    it uses, one table per component class) and its entropy-coded data."""
+    import numpy as np
+
+    out = []
+    for comps, ss, se, ah, al in script:
+        if len(comps) > 1:  # interleaved: MCU order, each component's v × h blocks
+            units = [[(ci, b) for ci in comps for b in
+                      blocks[ci][y, x].reshape(-1, 64)] for y in range(my) for x in range(mx)]
+        else:  # the component's own blocks, raster order over its sample size
+            ci = comps[0]
+            h, v = samp[ci]
+            g = blocks[ci].transpose(0, 2, 1, 3, 4).reshape(my * v, mx * h, 64)
+            ch, cw = planes_hw[ci]
+            units = [[(ci, g[y, x])] for y in range(-(-ch // 8)) for x in range(-(-cw // 8))]
+        per = restart_interval or len(units)
+        segs = []
+        for u0 in range(0, len(units), per):
+            coder, pred = _ScanCoder(al), {}
+            for unit in units[u0:u0 + per]:
+                for ci, b in unit:
+                    tab = min(ci, 1)
+                    if ss == 0 and ah == 0:
+                        dc = int(b[0]) >> al
+                        d = dc - pred.get(ci, 0)
+                        pred[ci] = dc
+                        n = abs(d).bit_length()
+                        coder.sym(tab, n, d if d >= 0 else d - 1, n)
+                    elif ss == 0:
+                        coder.raw([(int(b[0]) >> al) & 1])
+                    elif ah == 0:
+                        coder.ac_first(tab, b[ss:se + 1].tolist())
+                    else:
+                        coder.ac_refine(tab, b[ss:se + 1].tolist())
+            coder.emit_eobrun(min(unit[0][0], 1))
+            segs.append(coder.ev)
+        # one table per class over the symbols this scan uses
+        tables = {}
+        for ev in segs:
+            for tab, s, _, _ in ev:
+                if tab >= 0:
+                    tables.setdefault(tab, set()).add(s)
+        codes = {}
+        for tab, syms in tables.items():
+            syms = sorted(syms)
+            length = max(1, len(syms).bit_length())  # all-ones code left unused
+            bits = [0] * 16
+            bits[length - 1] = len(syms)
+            codes[tab] = (bits, syms, {s: i for i, s in enumerate(syms)}, length)
+        data = []
+        for ev in segs:
+            vals = np.array([(codes[t][2][s] << n) | (e & ((1 << n) - 1)) if t >= 0
+                             else e for t, s, e, n in ev] or [0], np.int64)
+            lens = np.array([codes[t][3] + n if t >= 0 else 1 for t, s, e, n in ev] or [0],
+                            np.int64)
+            data.append(_pack_bits(vals, lens))
+        out.append(((comps, ss, se, ah, al), codes, data))
+    return out
+
+
 def write_jpeg(path: str, img, quality: int = 90, subsampling: str = "420",
-               restart_interval: int = 0) -> None:
-    """Write a uint8 image ([H, W] gray or [H, W, 3] RGB) as a baseline JFIF
-    JPEG: 4:4:4, 4:2:2, 4:2:0 or 4:4:0 (h1v2) chroma for colour, the Annex K
-    quantisation tables scaled by `quality` and Huffman tables, restart
-    markers every `restart_interval` MCUs (0: none). A fixture writer for
-    the tests and the card's smoke run (the decoder's input): the forward
-    DCT is float numpy, the entropy coding vectorised."""
+               restart_interval: int = 0, progressive=False) -> None:
+    """Write a uint8 image ([H, W] gray or [H, W, 3] RGB) as a JFIF JPEG:
+    4:4:4, 4:2:2, 4:2:0 or 4:4:0 (h1v2) chroma for colour, the Annex K
+    quantisation tables scaled by `quality`, restart markers every
+    `restart_interval` MCUs (0: none). Baseline with the Annex K Huffman
+    tables, or with `progressive` (True / "standard", "spectral" or
+    "dc_sa", see `_scan_script`) a SOF2
+    frame whose scans each define their own tables, as libjpeg's encoder
+    must (jcmaster.c: the Annex K AC tables lack the end-of-band-run
+    symbols). A fixture writer for the tests and the card's smoke run (the
+    decoder's input): the forward DCT is float numpy, the baseline entropy
+    coding vectorised, the progressive one a loop over blocks."""
     import struct
 
     import numpy as np
@@ -274,6 +438,33 @@ def write_jpeg(path: str, img, quality: int = 90, subsampling: str = "420",
         q = qts[min(ci, 1)].reshape(8, 8).astype(np.float32)
         zz = np.rint(coef / q).astype(np.int64).reshape(my * v, mx * h, 64)[..., nat]
         blocks.append(zz.reshape(my, v, mx, h, 64).transpose(0, 2, 1, 3, 4))
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    ncomp = len(planes)
+    head = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for t, q in enumerate(qts[:len(set(min(c, 1) for c in range(ncomp)))]):
+        head += seg(0xDB, bytes([t]) + bytes(q[nat].astype(np.uint8)))
+    sof = struct.pack(">BHHB", 8, H, W, ncomp) + b"".join(
+        bytes([ci + 1, (h << 4) | v, min(ci, 1)]) for ci, (h, v) in enumerate(samp))
+    if progressive:
+        hw = [(-(-H * v // vmax), -(-W * h // hmax)) for h, v in samp]
+        head += seg(0xC2, sof)
+        if restart_interval:
+            head += seg(0xDD, struct.pack(">H", restart_interval))
+        for (comps, ss, se, ah, al), codes, data in _progressive_scans(
+                blocks, samp, mx, my, hw, restart_interval, _scan_script(progressive, ncomp)):
+            for tab, (bits, syms, _, _) in sorted(codes.items()):
+                head += seg(0xC4, bytes([(0x00 if ss == 0 else 0x10) | tab]) + bytes(bits)
+                            + bytes(syms))
+            head += seg(0xDA, bytes([len(comps)]) + b"".join(
+                bytes([ci + 1, (min(ci, 1) << 4) | min(ci, 1)]) for ci in comps)
+                + bytes([ss, se, (ah << 4) | al]))
+            head += b"".join((bytes([0xFF, 0xD0 + (i - 1) % 8]) if i else b"") + d
+                             for i, d in enumerate(data))
+        with open(path, "wb") as f:
+            f.write(head + b"\xff\xd9")
+        return
     # stream order: per MCU, per component, its v × h blocks
     order = [b.reshape(my * mx, -1, 64) for b in blocks]
     comp_of = np.concatenate([np.full(b.shape[1], ci) for ci, b in enumerate(order)])
@@ -349,15 +540,6 @@ def write_jpeg(path: str, img, quality: int = 90, subsampling: str = "420",
             out += bytes([0xFF, 0xD0 + (s_i - 1) % 8])
         out += _pack_bits(vals, lens)
 
-    def seg(marker, body):
-        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
-
-    head = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    for t, q in enumerate(qts[:len(set(min(c, 1) for c in range(len(planes))))]):
-        head += seg(0xDB, bytes([t]) + bytes(q[nat].astype(np.uint8)))
-    ncomp = len(planes)
-    sof = struct.pack(">BHHB", 8, H, W, ncomp) + b"".join(
-        bytes([ci + 1, (h << 4) | v, min(ci, 1)]) for ci, (h, v) in enumerate(samp))
     head += seg(0xC0, sof)
     for t in range(1 if gray else 2):
         head += seg(0xC4, bytes([0x00 | t]) + bytes(_K3_DC_BITS[t]) + bytes(range(12)))

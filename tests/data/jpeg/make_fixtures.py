@@ -1,10 +1,14 @@
-"""Write the JPEG fixtures of tests/test_torch_jpeg.py with Pillow (its
-bundled libjpeg-turbo): `python tests/data/jpeg/make_fixtures.py`. Each name
-says what the file covers; the decoder is held to Pillow's decode of the
-committed files, so rewriting them with another Pillow changes nothing the
-tests assert."""
+"""Write the JPEG fixtures of tests/test_torch_jpeg.py and
+tests/test_torch_jpeg_progressive.py with Pillow (its bundled
+libjpeg-turbo): `python tests/data/jpeg/make_fixtures.py [name ...]` (every
+fixture, or the named ones). Each name says what the file covers; the
+decoder is held to Pillow's decode of the committed files, so rewriting them
+with another Pillow changes nothing the tests assert. Pillow writes
+progressive files with libjpeg's standard scan script
+(jcparam.c jpeg_simple_progression) and optimised Huffman tables per scan."""
 
 import os
+import sys
 
 import numpy as np
 from PIL import Image
@@ -27,6 +31,19 @@ FIXTURES = {
     "gray_q95_33x9.jpg": (33, 9, dict(quality=95)),
     "gray_q50_17x23_optimize.jpg": (17, 23, dict(quality=50, optimize=True)),
     "progressive_q90_24x32.jpg": (24, 32, dict(quality=90, progressive=True)),
+    "progressive_gray_q90_21x19.jpg": (21, 19, dict(quality=90, progressive=True)),
+    "progressive_rgb444_q95_17x23.jpg": (17, 23, dict(quality=95, subsampling=0,
+                                                      progressive=True)),
+    "progressive_rgb422_q75_31x45.jpg": (31, 45, dict(quality=75, subsampling=1,
+                                                      progressive=True)),
+    "progressive_rgb420_q85_37x41.jpg": (37, 41, dict(quality=85, subsampling=2,
+                                                      progressive=True)),
+    "progressive_rgb420_q90_3x4.jpg": (3, 4, dict(quality=90, subsampling=2,
+                                                  progressive=True)),
+    "progressive_rgb420_q90_40x56_restart3.jpg": (40, 56, dict(
+        quality=90, subsampling=2, progressive=True, restart_marker_blocks=3)),
+    "progressive_rgb422_q75_31x45_restart1.jpg": (31, 45, dict(
+        quality=75, subsampling=1, progressive=True, restart_marker_blocks=1)),
 }
 
 
@@ -40,7 +57,9 @@ def image(h, w, seed):
 
 if __name__ == "__main__":
     for i, (name, (h, w, opts)) in enumerate(FIXTURES.items()):
+        if sys.argv[1:] and name not in sys.argv[1:]:
+            continue
         img = Image.fromarray(image(h, w, i))
-        if name.startswith("gray"):
+        if "gray" in name:
             img = img.convert("L")
         img.save(os.path.join(HERE, name), **opts)

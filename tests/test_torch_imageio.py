@@ -6,7 +6,11 @@ none of them importable. JAX-free.
   decodes the port's file to the input, for gray, gray + alpha, RGB and RGBA
   images of odd sizes, noisy and smooth (PIL's writer then uses the None,
   Sub, Up and Paeth row filters), and palette images; a file written with
-  the Average filter on every row decodes as PIL decodes it.
+  the Average filter on every row decodes as PIL decodes it; sub-byte
+  depths (1-bit gray and palette images of 1, 2 and 4 bits written by PIL,
+  2- and 4-bit gray written here) and Adam7-interlaced files of every
+  colour type and depth (written here: PIL writes no interlaced PNG) read
+  as PIL's `convert("RGB")` reads them, bit for bit.
 - PIL's LANCZOS and BILINEAR resizes of uint8 images: equal to PIL's
   (the contract allows one level of 255; the measured gap is 0).
 - cv2's INTER_LINEAR resize of float arrays within 1e-5 of scale, its
@@ -81,6 +85,91 @@ def test_png_palette_matches_pil(tmp_path):
     want = np.asarray(Image.open(path).convert("RGB"))
     np.testing.assert_array_equal(io.read_png(path), want)
     np.testing.assert_array_equal(io.read_image_rgb(path), want)
+
+
+@pytest.mark.parametrize("kind", ["1", "P1", "P2", "P4"])
+def test_png_sub_byte_depths_written_by_pil_match_pil(kind, tmp_path):
+    path = str(tmp_path / "s.png")
+    rgb = _images((19, 29, 3), 11)[1]
+    if kind == "1":
+        Image.fromarray(rgb).convert("1").save(path)
+    else:
+        bits = int(kind[1])
+        Image.fromarray(rgb).convert("P", palette=Image.ADAPTIVE, colors=1 << bits).save(
+            path, bits=bits)
+    with open(path, "rb") as f:
+        assert f.read(25)[24] == (1 if kind == "1" else int(kind[1]))  # IHDR bit depth
+    np.testing.assert_array_equal(io.read_image_rgb(path), np.asarray(
+        Image.open(path).convert("RGB")))
+
+
+def _adam7_png(path, samples, depth, ctype, plte=None, interlace=True, seed=0):
+    """Write samples [H, W, C] (values < 2**depth) as a PNG, Adam7-interlaced
+    or not, each row with a seeded filter of 0-4 (the encoder's side of
+    the filters over the bytes, sub-byte samples packed most significant
+    first)."""
+    import struct
+    import zlib
+
+    rng = np.random.default_rng(seed)
+    H, W, C = samples.shape
+    passes = ([(0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+               (0, 1, 2, 2), (1, 0, 2, 1)] if interlace else [(0, 0, 1, 1)])
+    bpp = max(1, C * depth // 8)
+    raw = b""
+    for y0, x0, dy, dx in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        h, w = sub.shape[:2]
+        if depth == 16:
+            rows = sub.astype(">u2").view(np.uint8).reshape(h, -1)
+        elif depth == 8:
+            rows = sub.astype(np.uint8).reshape(h, -1)
+        else:
+            bits = (sub.reshape(h, w)[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+            rows = np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
+        rows = rows.astype(np.int32)
+        prior = np.zeros(rows.shape[1], np.int32)
+        for r in range(h):
+            f = int(rng.integers(0, 5))
+            x = rows[r]
+            a = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
+            c = np.concatenate([np.zeros(bpp, np.int32), prior[:-bpp]])
+            b = prior
+            pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+            paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+            pred = [0 * x, a, b, (a + b) >> 1, paeth][f]
+            raw += bytes([f]) + ((x - pred) & 255).astype(np.uint8).tobytes()
+            prior = x
+    with open(path, "wb") as fh:
+        ihdr = struct.pack(">IIBBBBB", W, H, depth, ctype, 0, 0, int(interlace))
+        fh.write(b"\x89PNG\r\n\x1a\n" + io._chunk(b"IHDR", ihdr)
+                 + (io._chunk(b"PLTE", plte.tobytes()) if plte is not None else b"")
+                 + io._chunk(b"IDAT", zlib.compress(raw)) + io._chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("interlace", [True, False], ids=["adam7", "plain"])
+@pytest.mark.parametrize("ctype,depth", [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8),
+                                         (2, 16), (3, 1), (3, 2), (3, 4), (3, 8), (4, 8),
+                                         (6, 8), (6, 16)])
+def test_png_depths_and_adam7_match_pil(ctype, depth, interlace, tmp_path):
+    rng = np.random.default_rng(depth * 10 + ctype)
+    C = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    plte = rng.integers(0, 256, (1 << min(depth, 8), 3), dtype=np.uint8) if ctype == 3 else None
+    for i, (H, W) in enumerate([(1, 1), (3, 5), (9, 7), (17, 30)]):
+        samples = rng.integers(0, 1 << depth, (H, W, C))
+        path = str(tmp_path / f"{i}.png")
+        _adam7_png(path, samples, depth, ctype, plte, interlace, seed=i)
+        want = Image.open(path)
+        if depth == 16 and ctype == 0:  # 16-bit gray stays uint16, as PIL's I;16
+            np.testing.assert_array_equal(io.read_png(path), np.asarray(want))
+        elif depth == 16:  # PIL keeps the high byte of 16-bit colour samples
+            got = (io.read_png(path) >> 8).astype(np.uint8)[..., :3]
+            np.testing.assert_array_equal(got, np.asarray(want.convert("RGB")))
+        else:
+            np.testing.assert_array_equal(io.read_image_rgb(path),
+                                          np.asarray(want.convert("RGB")), err_msg=f"{H}x{W}")
 
 
 @pytest.mark.parametrize("filt", ["lanczos", "bilinear"])

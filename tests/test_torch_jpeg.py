@@ -1,5 +1,6 @@
 """The port's baseline JPEG decoder (rodynrf_tpu_torch/data/jpeg.py) on the
-CPU, where its three stages run their plain versions:
+CPU, where its three stages run their plain versions (progressive frames:
+tests/test_torch_jpeg_progressive.py):
 
 - it equals Pillow's `np.asarray(Image.open(p).convert("RGB"))` bit for bit
   on every committed fixture (tests/data/jpeg, written by Pillow: 4:4:4,
@@ -11,7 +12,9 @@ CPU, where its three stages run their plain versions:
 - `decode_jpegs(..., device="cpu")` equals the plain stages run by hand;
 - the DAVIS loader on a JPEG scene equals the JAX package's (PIL + LANCZOS):
   frames bit for bit, sidecars under test_torch_data.py's tolerances;
-- unsupported kinds and broken files raise ValueError naming the marker;
+- unsupported kinds (progressive arithmetic-coded frames, progressive
+  scripts that leave coefficients short of full precision, ...) and broken
+  files raise ValueError naming the marker;
 - the port reads JPEG scenes with PIL blocked; without a card the decoder
   and the loader refuse their default device;
 - chip_smoke.py phase 14 rehearses on the CPU at a small size.
@@ -143,7 +146,9 @@ def _scan(data):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("progressive", "SOF2: progressive"),
+    ("progressive arithmetic", "SOF10: progressive arithmetic-coded"),
+    ("incomplete progressive script", "EOI: an incomplete progressive script: component 0 "
+                                      "coefficients 1-63 left 1 bits short"),
     ("arithmetic", "SOF9: arithmetic-coded"),
     ("12-bit", "SOF0: 12-bit samples"),
     ("four components", "SOF0: 4 components"),
@@ -159,8 +164,13 @@ def test_unsupported_and_broken_files_raise(tmp_path, case, match):
         "truncated": lambda d: d.__delitem__(slice(_scan(d) + 200, None)),
         "corrupt": lambda d: d.__setitem__(slice(_scan(d), _scan(d) + 64), b"\xff\x00" * 32),
     }
-    path = (str(FIXTURES / "progressive_q90_24x32.jpg") if case == "progressive"
-            else _patched(tmp_path, name, edits[case]))
+    prog = bytes((FIXTURES / "progressive_q90_24x32.jpg").read_bytes())
+    edits["progressive arithmetic"] = lambda d: d.__setitem__(prog.index(b"\xff\xc2") + 1, 0xCA)
+    # the standard script without its last scan (Y AC 1-63, Ah 1 -> Al 0)
+    edits["incomplete progressive script"] = lambda d: d.__setitem__(
+        slice(prog.rindex(b"\xff\xda"), len(d) - 2), b"")
+    path = _patched(tmp_path, "progressive_q90_24x32.jpg" if "progressive" in case else name,
+                    edits[case])
     with pytest.raises(ValueError, match=match) as err:
         J.decode_jpegs([path], device="cpu")
     assert os.path.basename(path) in str(err.value)
@@ -200,11 +210,14 @@ def test_the_card_is_the_default(tmp_path):
 
 def test_chip_smoke_davis_phase_rehearses_on_the_cpu(monkeypatch):
     """chip_smoke.py phase 14 at a small size on the CPU (4 frames of 64×64,
-    batch 128, 32³ in place of 256³; the card's memory calls stubbed, the
-    table-gradient counters set to what the CPU's plain versions count, the
-    JPEG wrappers counted per call): the fixtures and frames through the
-    stages, the preprocessing commands with --zfill 5, the recipe through
-    cli.main with its render_only check, the timed trainers."""
+    a progressive scene of 4 frames of 48×32, batch 128, 32³ in place of
+    256³; the card's memory calls stubbed, the table-gradient counters set
+    to what the CPU's plain versions count, the JPEG wrappers counted as the
+    card counts them: one per call, the progressive decode one per round):
+    the fixtures and frames through the stages, the preprocessing commands
+    with --zfill 5, the recipe through cli.main, the timed trainers, the
+    progressive scene through load_scene and cli.main, and its checkpoint
+    through --render_only."""
     import chip_smoke as cs
     from rodynrf_tpu_torch.ops import jpeg as K
 
@@ -212,6 +225,7 @@ def test_chip_smoke_davis_phase_rehearses_on_the_cpu(monkeypatch):
         monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
     monkeypatch.setattr(cs, "DAVIS_SCENE", dict(T=4, H=64, W=64))
+    monkeypatch.setattr(cs, "DAVIS_PROGRESSIVE", dict(T=4, H=32, W=48))
     monkeypatch.setattr(cs, "DAVIS_VOXELS_256", "32768")
     monkeypatch.setattr(cs, "DAVIS_RECIPE", cs.DAVIS_RECIPE + ["--batch_size", "128"])
     monkeypatch.setattr(cs, "PRE_LONG_SIDE", 64)
@@ -222,16 +236,27 @@ def test_chip_smoke_davis_phase_rehearses_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "counters", lambda: dict(zero))
     for name in cs.JPEG_KERNELS:
         def counted(*a, _fn=getattr(K, name), _name=name, **kw):
-            getattr(K, _name).launches += 1
+            batch = a[-1]  # every wrapper takes the batch last
+            getattr(K, _name).launches += (int(batch.seg.shape[0] > 0) if _name == "jpeg_entropy"
+                                           else len(batch.rounds)
+                                           if _name == "jpeg_progressive" else 1)
             return _fn(*a, **kw)
         counted.launches = 0
         monkeypatch.setattr(K, name, counted)
     records, davis = cs.drive_davis("cpu", device="cpu")
-    assert [r["path"] for r in records] == ["davis_cli", "davis_16", "davis_256"]
-    one = {k: 1 for k in cs.JPEG_KERNELS}
+    assert [r["path"] for r in records] == ["davis_cli", "davis_16", "davis_256",
+                                            "davis_progressive"]
+    one = cs.one_batch_launches()
+    assert one == {"jpeg_entropy": 1, "jpeg_progressive": 0, "jpeg_idct": 1, "jpeg_color": 1}
     assert records[0]["launches"] == records[1]["launches"] == {**zero, **one}
     assert records[2]["launches"] == {**zero, **{k: 0 for k in one}}
+    assert records[3]["launches"] == {**zero, **cs.one_batch_launches(False, 10)}
     assert davis["steps"]["davis_256"]["grid"] == [31, 31, 31]
     assert all(np.isfinite(davis["cli"]["losses"])) and len(davis["cli"]["psnrs"]) == 4
-    # the scene's 4 frames as the loader's one batch, then a restart frame
-    assert [(c["frames"], c["segments"]) for c in davis["jpeg_cases"]][1:] == [(4, 4), (1, 2)]
+    assert len(davis["progressive"]["losses"]) == 1 and len(davis["progressive"]["psnrs"]) == 4
+    assert davis["progressive"]["render_only_psnrs_equal"]
+    # the scene's 4 frames as the loader's one batch, a restart frame, every
+    # fixture (10 baseline + 8 progressive), the progressive scene's frames
+    cases = [(c["frames"], c["segments"], c["progressive_frames"], c["rounds"])
+             for c in davis["jpeg_cases"]]
+    assert cases[1:] == [(4, 4, 0, 0), (1, 2, 0, 0), (18, 24, 8, 10), (4, 0, 4, 10)]

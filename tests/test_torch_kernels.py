@@ -1,5 +1,7 @@
 """The port's CUDA kernels (coalesce, segment sum in its upd and factored
-forms, the bit-limited radix sort) against their plain PyTorch versions.
+forms, the bit-limited radix sort, the JPEG decoder's baseline and
+progressive entropy decodes, IDCT and colour pass) against their plain
+PyTorch versions.
 
 Imports torch and numpy only, so it runs on a machine with a card:
 
@@ -404,4 +406,43 @@ def test_jpeg_kernels_match_their_plain_versions(restart, tmp_path):
         n + 1 for n in before)
     assert not st_p.any()
     for got, want in ((coef, coef_p), (st, st_p), (planes, planes_p), (rgb, rgb_p)):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("restart", [0, 2])
+def test_jpeg_progressive_kernel_matches_its_plain_version(restart, tmp_path):
+    """csrc/jpeg_progressive.cu on the committed fixtures (baseline and
+    progressive in one batch) and on progressive write_jpeg frames of every
+    subsampling under the writer's three scan scripts, with and without
+    restart markers: one launch per round; once every round has run, the
+    blocks and the status words equal the plain version's bit for bit, and
+    so do the pixels that the IDCT and colour kernels make of them."""
+    from rodynrf_tpu_torch.data import jpeg as J
+    from rodynrf_tpu_torch.ops import jpeg as K
+    from rodynrf_tpu_torch.testing import write_jpeg
+
+    dev = _card()
+    rng = np.random.default_rng(10 + restart)
+    paths = [str(p) for p in sorted((REPO / "tests" / "data" / "jpeg").glob("*.jpg"))]
+    for i, (sub, (h, w)) in enumerate([("444", (17, 23)), ("422", (33, 9)), ("420", (40, 56)),
+                                       ("440", (31, 45)), ("gray", (24, 24))]):
+        img = rng.integers(0, 256, (h, w) if sub == "gray" else (h, w, 3), dtype=np.uint8)
+        for script in (True, "spectral", "dc_sa"):
+            paths.append(str(tmp_path / f"{i}_{script}.jpg"))
+            write_jpeg(paths[-1], img, 75, "444" if sub == "gray" else sub, restart,
+                       progressive=script)
+    host = J.pack([J.read_jpeg(p) for p in paths])
+    card = host.to(dev)
+    coef_p, _ = K.jpeg_entropy(host)
+    pst_p = K.jpeg_progressive(coef_p, host)
+    rgb_p = K.jpeg_color(K.jpeg_idct(coef_p, host), host)
+    before = K.jpeg_progressive.launches
+    coef, _ = K.jpeg_entropy(card)
+    pst = K.jpeg_progressive(coef, card)
+    rgb = K.jpeg_color(K.jpeg_idct(coef, card), card)
+    torch.cuda.synchronize()
+    assert K.jpeg_progressive.launches == before + len(host.rounds) == before + 10
+    assert not pst_p.any()
+    for got, want in ((coef, coef_p), (pst, pst_p), (rgb, rgb_p)):
         assert torch.equal(got.cpu(), want)
