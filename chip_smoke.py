@@ -179,13 +179,21 @@ result):
          re-encoded with a restart marker every 8 MCUs, every fixture
          (baseline and progressive) as one batch, the progressive scene's
          frames as one batch; each kernel's ms (CUDA events, each through
-         its wrapper; the progressive decode's split by round from the
-         profiler's kernel events), the plain versions' CPU ms, each
-         kernel's byte bound; then each scene's 8 frames as one batch
-         (`decode_jpegs` end to end, and each kernel);
+         its wrapper; the progressive decode's by round, as CUDA-event
+         differences of its first rounds; the entropy decodes' split by
+         pass, sync / scan / write, from the profiler's kernel events; the
+         sync rounds), the plain versions' CPU ms, each
+         kernel's byte bound; the two scenes' batches again at the
+         subsequence lengths of JPEG_SWEEP; damaged copies
+         (`testing.damaged_jpegs`) of every fixture and of a frame of each
+         scene with and without restart markers, at 64-bit and the default
+         subsequences: status words and blocks as the plain versions'; then
+         each scene's 8 frames as one batch (`decode_jpegs` end to end, and
+         each kernel);
      14b. `preprocess flow | depth --out_dir dpt | mask`, each with --zfill 5,
          from phase 11's kind of random checkpoints: flow and depth read the
-         frames as one batch through the kernels (one launch of each);
+         frames as one batch through the kernels (the entropy decode's
+         three passes, one IDCT, one colour pass);
      14c. `cli.main` of the recipe at its 16³ start on 14b's products with
          --downsample_train 2 (960×540 rays; every frame decoded by the
          kernels, resized by pil_resize): 3 steps, the evaluation of the 8
@@ -195,8 +203,9 @@ result):
          counts equal to launches per step × steps for the layouts auto
          chose, `main_path` lines `davis_cli`, `davis_16`, `davis_256`;
      14d. the progressive scene through `load_scene` on the card (one
-         batch: no baseline launch, one progressive launch per round, one
-         IDCT and one colour pass) equal bit for bit to `load_scene` on the
+         batch: no baseline launch; per round three progressive launches
+         for its first scans, one for its DC and one for its AC refinements;
+         one IDCT and one colour pass) equal bit for bit to `load_scene` on the
          CPU, then `cli.main` for 1 step (--render_test 0; the CLI's final
          evaluation of the training frames runs, as the reference's does):
          a finite loss and PSNRs, launch counts as above, `main_path` line
@@ -328,6 +337,9 @@ JPEG_KERNELS = ("jpeg_entropy", "jpeg_progressive", "jpeg_idct", "jpeg_color")
 # (testing.write_jpeg's libjpeg standard script), as the loader's one batch
 DAVIS_PROGRESSIVE = dict(T=8, H=480, W=854)
 JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+# 14a: the entropy decodes of the two scenes' batches also at these
+# subsequence lengths (bits a decoder of the parallel decode)
+JPEG_SWEEP = (256, 4096)
 # phase 15: tools/quality_run's recipe (ndc, pose + focal) on its 8×96×128
 # scene for QUALITY_ITERS iterations: the JAX script's upsample fractions of
 # the budget (1/6, 1/3, 1/2, 2/3) put the upsamples at 25, 50, 75 and 100,
@@ -2426,65 +2438,119 @@ def jpeg_bytes(host) -> dict:
     b0 = host.plane_block0.tolist()
     prog_blocks = sum(b0[p0 + nc] - b0[p0] for f, (_, _, _, nc, p0) in
                       zip(host.frames, host.frame.tolist()) if f.progressive)
+    data = int(host.seg[:, 1].sum()) if host.seg.shape[0] else 0
     prog_data = int(host.pseg[:, 1].sum()) if host.pseg.shape[0] else 0
     tables = host.huff.numel() * 4 + host.scan.numel() * 4 + host.seg.numel() * 4
     ptables = host.phuff.numel() * 4 + host.pscan.numel() * 4 + host.pseg.numel() * 4
     blocks = host.n_blocks * 128
-    return {"jpeg_entropy": host.data.numel() - prog_data + tables + blocks - prog_blocks * 128,
+    return {"jpeg_entropy": data + tables + blocks - prog_blocks * 128,
             "jpeg_progressive": prog_data + ptables + prog_blocks * 128,
             "jpeg_idct": blocks + host.quant.numel() * 4 + host.n_plane_bytes,
             "jpeg_color": host.n_plane_bytes + host.n_pixels * 3}
 
 
-def one_batch_launches(baseline: bool = True, rounds: int = 0) -> dict:
+def one_batch_launches(baseline: bool = True, round_kinds=()) -> dict:
     """The JPEG launches of one decode_jpegs batch: the baseline entropy
-    decode if the batch has baseline frames, one progressive launch per
-    round, one IDCT and one colour pass."""
-    return {"jpeg_entropy": int(baseline), "jpeg_progressive": rounds, "jpeg_idct": 1,
-            "jpeg_color": 1}
+    decode's sync, scan and write passes if the batch has baseline frames;
+    per round of progressive scans (`round_kinds`, JpegBatch.round_kinds)
+    the same three for its first scans, one for its DC refinements and one
+    for its AC refinements; one IDCT and one colour pass."""
+    return {"jpeg_entropy": 3 * int(baseline),
+            "jpeg_progressive": sum(3 * bool(nf) + bool(ndc) + bool(nac)
+                                    for nf, ndc, nac in round_kinds),
+            "jpeg_idct": 1, "jpeg_color": 1}
+
+
+JPEG_PASSES = ("sync_kernel", "scan_kernel", "write_kernel", "dc_refine_kernel",
+               "ac_refine_kernel")
+
+
+def jpeg_kernel_events(fn) -> list:
+    """[(pass, ms)] of the JPEG entropy kernels one call of `fn` launches, in
+    launch order, from the profiler's kernel events (None if it recorded
+    none: a profiler run now and then records no device activity, so it is
+    redone twice)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        out = [(next(p for p in JPEG_PASSES if p in name)[:-len("_kernel")], us / 1e3)
+               for _, name, us in events if any(p in name for p in JPEG_PASSES)]
+        if out:
+            return out
+    return None
+
+
+def entropy_split(dev) -> dict:
+    """ms of the baseline decode's sync, scan and write passes (one wrapper
+    call's kernel events) and its sync rounds."""
+    from rodynrf_tpu_torch.ops import jpeg as K
+
+    events = jpeg_kernel_events(lambda: K.jpeg_entropy(dev))
+    split = dict(events) if events else None
+    return {"ms": split, "sync_rounds": int(K.jpeg_entropy.last_ctl[5]) + 1}
 
 
 def progressive_round_ms(dev, coef0, windows: int):
-    """(ms of each round by the profiler's kernel events, ms of the whole
-    decode) of ops/jpeg.jpeg_progressive on a batch on the card. The rounds
-    refine their blocks in place, so every call starts from a fresh copy of
-    the baseline decode's blocks `coef0`: the whole decode is the CUDA-event
-    median of copy + wrapper less that of the copy alone (`windows` windows
-    of one call each). The per-round split reads one wrapper call's kernel
-    events under torch.profiler (None if it recorded none)."""
-    from torch.profiler import ProfilerActivity, profile
+    """(per round: its ms, its kernels' ms by pass and its sync rounds; ms
+    of the whole decode) of ops/jpeg.jpeg_progressive on a batch on the
+    card. The rounds refine their blocks in place, so every call starts from
+    a fresh copy of the baseline decode's blocks `coef0`: a decode's time is
+    the CUDA-event median of copy + wrapper less that of the copy alone
+    (`windows` windows of one call each); round k's is that of the batch's
+    first k + 1 rounds less that of its first k. The split by pass reads
+    one wrapper call's kernel events under torch.profiler (None if it
+    recorded none)."""
+    import copy
 
     from rodynrf_tpu_torch.ops import jpeg as K
 
     work = coef0.clone()
+    copy_ms = median_ms(lambda: work.copy_(coef0), windows, 1)[0]
 
-    def decode():
-        work.copy_(coef0)
-        K.jpeg_progressive(work, dev)
+    def decode_ms(batch):
+        def decode():
+            work.copy_(coef0)
+            K.jpeg_progressive(work, batch)
+        return median_ms(decode, windows, 1)[0] - copy_ms
 
-    total = median_ms(decode, windows, 1)[0] - median_ms(lambda: work.copy_(coef0), windows, 1)[0]
-    per_round = None
-    for _ in range(3):  # a profiler run now and then records no device activity: redo it
-        work.copy_(coef0)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            K.jpeg_progressive(work, dev)
-            torch.cuda.synchronize()
-        kernels = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and "progressive_kernel" in e.name)
-        if len(kernels) == len(dev.rounds):
-            per_round = [us / 1e3 for _, us in kernels]
-            break
-    return per_round, total
+    upto = []  # ms of the first k + 1 rounds
+    for k in range(len(dev.rounds)):
+        part = copy.copy(dev)
+        part.rounds, part.round_kinds = dev.rounds[:k + 1], dev.round_kinds[:k + 1]
+        upto.append(decode_ms(part))
+    work.copy_(coef0)
+    events = jpeg_kernel_events(lambda: K.jpeg_progressive(work, dev))
+    want = [3 * bool(nf) + bool(ndc) + bool(nac) for nf, ndc, nac in dev.round_kinds]
+    ctl = K.jpeg_progressive.last_ctl[:, 5].tolist()
+    per_round, i = [], 0
+    for k, (n, kinds) in enumerate(zip(want, dev.round_kinds)):
+        passes = None
+        if events and len(events) == sum(want):
+            passes = {}
+            for name, ms in events[i:i + n]:
+                passes[name] = passes.get(name, 0.0) + ms
+        i += n
+        per_round.append({"ms": upto[k] - (upto[k - 1] if k else 0.0), "kernel_ms": passes,
+                          "kinds": list(kinds),
+                          "sync_rounds": ctl[k] + 1 if kinds[0] else None})
+    return per_round, upto[-1]
 
 
-def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20)) -> dict:
+def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20), sweep=()) -> dict:
     """14a: a batch of frames through the three kernels and through their
     plain versions on the CPU, equal bit for bit (blocks, status words,
     planes, pixels); each kernel's time for the batch and per frame (CUDA
-    events, `reps` windows × launches), the plain versions' CPU time, each
-    kernel's byte bound."""
+    events, `reps` windows × launches), the entropy decodes' split by pass
+    (the progressive one by round too), the plain versions' CPU time, each
+    kernel's byte bound; with `sweep`, the entropy decodes at those
+    subsequence lengths too (each held bit for bit, timed)."""
     from rodynrf_tpu_torch.data import jpeg as J
     from rodynrf_tpu_torch.ops import jpeg as K
 
@@ -2527,7 +2593,13 @@ def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20)) -> dict:
             "blocks": host.n_blocks, "segments": int(host.seg.shape[0]),
             "progressive_frames": sum(f.progressive for f in host.frames),
             "progressive_segments": int(host.pseg.shape[0]), "rounds": len(host.rounds),
-            "compressed_bytes": int(host.data.numel()), "max_abs_err": 0,
+            "round_kinds": [list(k) for k in host.round_kinds],
+            "launches": one_batch_launches(work["jpeg_entropy"], host.round_kinds),
+            "subseq_bits": J.SUBSEQ_BITS,
+            "subsequences": {"jpeg_entropy": int(host.sub0[-1]),
+                             "jpeg_progressive": int(host.psub0[-1])},
+            "compressed_bytes": int(host.seg[:, 1].sum() + host.pseg[:, 1].sum()),
+            "max_abs_err": 0,
             "plain_cpu_ms": {k: v for k, v in plain_ms.items() if work[k]}, "bytes": nbytes,
             "bound_ms": {k: 1e3 * v / HBM_BYTES_PER_S for k, v in nbytes.items()}}
     if device == "cuda":
@@ -2536,18 +2608,76 @@ def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20)) -> dict:
             "jpeg_entropy": median_ms(lambda: K.jpeg_entropy(dev), windows, n)[0],
             "jpeg_idct": median_ms(lambda: K.jpeg_idct(coef, dev), windows, n)[0],
             "jpeg_color": median_ms(lambda: K.jpeg_color(planes, dev), windows, n)[0]}
+        if work["jpeg_entropy"]:
+            case["entropy_split"] = entropy_split(dev)
         if host.rounds:
             case["ms_per_round"], case["ms"]["jpeg_progressive"] = progressive_round_ms(
                 dev, coef0, max(windows, 3))
         case["ms"] = {k: v for k, v in case["ms"].items() if work[k]}
         case["ms_per_frame"] = {k: v / len(paths) for k, v in case["ms"].items()}
+        sweep_ms = {}
+        for bits in sweep:  # the subsequence length, each held to the plain version
+            c, s = K.jpeg_entropy(dev, bits)
+            ok = torch.equal(c.cpu(), coef0_p) and torch.equal(s.cpu(), st_p)
+            if host.rounds:
+                K.jpeg_progressive(c, dev, bits)
+                ok = ok and torch.equal(c.cpu(), coef_p)
+            if not ok:
+                raise AssertionError(f"[14a] {label}: subseq_bits {bits} differs from the plain "
+                                     f"versions")
+            w = coef0.clone()
+            sweep_ms[bits] = {
+                "jpeg_entropy": median_ms(lambda: K.jpeg_entropy(dev, bits), 3, 1)[0]
+                if work["jpeg_entropy"] else None,
+                "jpeg_progressive": (median_ms(lambda: (w.copy_(coef0), K.jpeg_progressive(
+                    w, dev, bits)), 3, 1)[0] - median_ms(lambda: w.copy_(coef0), 3, 1)[0])
+                if host.rounds else None}
+        if sweep_ms:
+            case["subseq_sweep_ms"] = sweep_ms
     log(f"[14a] {label}: {len(paths)} frames ({case['progressive_frames']} progressive, "
         f"{case['rounds']} rounds), {host.n_pixels} pixels, {case['segments']} + "
         f"{case['progressive_segments']} segments, {case['compressed_bytes']} compressed "
         f"bytes: kernels = "
-        f"plain versions bit for bit; kernel ms {case.get('ms')}, per round "
-        f"{case.get('ms_per_round')}, bound ms {case['bound_ms']}, plain CPU ms "
+        f"plain versions bit for bit; kernel ms {case.get('ms')}, split "
+        f"{case.get('entropy_split')}, per round {case.get('ms_per_round')}, subsequence "
+        f"sweep {case.get('subseq_sweep_ms')}, bound ms {case['bound_ms']}, plain CPU ms "
         f"{case['plain_cpu_ms']}")
+    return case
+
+
+def jpeg_damaged_case(label: str, paths, device: str = "cuda",
+                      lengths=(64, None)) -> dict:
+    """14a: damaged files (testing.damaged_jpegs) through both entropy
+    kernels at each subsequence length (None: the default) against their
+    plain versions: status words and blocks bit for bit."""
+    from rodynrf_tpu_torch.data import jpeg as J
+    from rodynrf_tpu_torch.ops import jpeg as K
+
+    host = J.pack([J.read_jpeg(str(p)) for p in paths])
+    dev = host.to(device)
+    coef_p, st_p = J.entropy_decode_plain(host)
+    coef0_p = coef_p.clone()
+    pst_p = J.progressive_decode_plain(coef_p, host)
+    for bits in lengths:
+        kw = {} if bits is None else {"subseq_bits": bits}
+        coef, st = K.jpeg_entropy(dev, **kw)
+        coef0 = coef.clone()
+        pst = K.jpeg_progressive(coef, dev, **kw)
+        for name, a, b in (("status", st, st_p), ("baseline blocks", coef0, coef0_p),
+                           ("progressive status", pst, pst_p), ("blocks", coef, coef_p)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"[14a] {label}: subseq_bits {bits}: the kernels' {name} "
+                                     f"differ from the plain versions'")
+    codes = {J.STATUS_TEXT.get(c, "ok"): int((st_p == c).sum() + (pst_p == c).sum())
+             for c in range(5)}
+    if not codes[J.STATUS_TEXT[J.STATUS_BAD_CODE]] or not codes[J.STATUS_TEXT[J.STATUS_SHORT]]:
+        raise AssertionError(f"[14a] {label}: no corrupt or short segment: {codes}")
+    case = {"case": label, "frames": len(paths), "segments": int(host.seg.shape[0]),
+            "progressive_segments": int(host.pseg.shape[0]), "status_counts": codes,
+            "subseq_bits": [bits or J.SUBSEQ_BITS for bits in lengths], "max_abs_err": 0}
+    log(f"[14a] {label}: {len(paths)} damaged frames, {case['segments']} + "
+        f"{case['progressive_segments']} segments, status words {codes}: kernels = plain "
+        f"versions bit for bit at subsequences of {case['subseq_bits']} bits")
     return case
 
 
@@ -2610,7 +2740,7 @@ def drive_davis(smi: str, device: str = "cuda"):
     from rodynrf_tpu_torch.preprocess import generate_depth
     from rodynrf_tpu_torch.preprocess import main as preprocess
     from rodynrf_tpu_torch.preprocess.dpt import DPTConfig
-    from rodynrf_tpu_torch.testing import write_jpeg, write_video_scene
+    from rodynrf_tpu_torch.testing import damaged_jpegs, write_jpeg, write_video_scene
     from rodynrf_tpu_torch.train import Trainer, config_parser
 
     t_phase = time.time()
@@ -2640,7 +2770,7 @@ def drive_davis(smi: str, device: str = "cuda"):
         slow = (3, 2)  # windows × launches for the whole-frame cases
         cases = [jpeg_case("fixtures", fixtures, device),
                  jpeg_case(f"{T} frames {W}x{H} 4:2:0 q{DAVIS_QUALITY} (the loader's batch)",
-                           frames, device, slow)]
+                           frames, device, slow, JPEG_SWEEP)]
         first = decode_jpegs(frames[:1], device)[0].cpu().numpy()
         rst = root / "restart.jpg"
         write_jpeg(str(rst), first, DAVIS_QUALITY, "420", DAVIS_RESTART)
@@ -2648,7 +2778,19 @@ def drive_davis(smi: str, device: str = "cuda"):
                                [rst], device, slow))
         cases.append(jpeg_case("fixtures, baseline + progressive", every, device))
         cases.append(jpeg_case(f"{PT} frames {PW}x{PH} 4:2:0 q{DAVIS_QUALITY} progressive "
-                               f"(the loader's batch)", prog_frames, device, slow))
+                               f"(the loader's batch)", prog_frames, device, slow, JPEG_SWEEP))
+        # damaged entropy-coded data: the fixtures and a frame of each scene
+        # (with restart markers too), each with flipped bytes, a segment cut
+        # short and a run of all-ones bits, at a short and the default length
+        damaged = root / "damaged"
+        damaged.mkdir()
+        rst_prog = root / "restart_progressive.jpg"
+        write_jpeg(str(rst_prog), first[:PH, :PW], DAVIS_QUALITY, "420", DAVIS_RESTART,
+                   progressive=True)
+        damaged_cases = [jpeg_damaged_case(
+            "damaged fixtures and frames", damaged_jpegs(
+                [*every, frames[0], rst, prog_frames[0], rst_prog], str(damaged), seed=14),
+            device)]
         # decode_jpegs on the two batches (host parse + copy + kernels +
         # status), and the kernels on the restart batch (the frames batch's
         # are its 14a case)
@@ -2780,7 +2922,7 @@ def drive_davis(smi: str, device: str = "cuda"):
                  "--no_tensorboard", "1", "--render_test", "0", "--render_path", "0",
                  "--progress_refresh_rate", "1", *ONE_PROCESS]
         pargs = config_parser(pargv)
-        rounds = cases[4]["rounds"]
+        rounds = cases[4]["round_kinds"]
         reset_jpeg_counters()
         t0 = time.time()
         psc = load_scene(pargs, device)
@@ -2845,7 +2987,8 @@ def drive_davis(smi: str, device: str = "cuda"):
                         "eval_s": prep["eval_s"], "losses": prep["losses"],
                         "psnrs": prep["psnrs"], "launches": plaunches,
                         "render_only_s": prender_s, "render_only_psnrs_equal": True},
-        "write_s": write_s, "jpeg_cases": cases, "jpeg_batch": batch, "preprocess": pre,
+        "write_s": write_s, "jpeg_cases": cases, "jpeg_damaged": damaged_cases,
+        "jpeg_batch": batch, "preprocess": pre,
         "cli": {"main_s": cli_s, "loader_s": rep["loader_s"], "train_s": rep["train_s"],
                 "eval_s": rep["eval_s"], "losses": rep["losses"], "psnrs": rep["psnrs"],
                 "peak_gib": peak_cli / 2**30,
@@ -3134,9 +3277,16 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": None, "case": frame_case["case"],
             "ms_per_round": frame_case.get("ms_per_round") if name == "jpeg_progressive"
             else None,
+            # the entropy decodes' passes (csrc/jpeg_huff.cuh: sync, scan, write)
+            "split": frame_case.get("entropy_split") if name == "jpeg_entropy" else None,
+            "subseq_sweep_ms": {b: v[name] for b, v in frame_case.get(
+                "subseq_sweep_ms", {}).items()} if name in ("jpeg_entropy", "jpeg_progressive")
+            else None,
             "cases": [{k: c.get(k) for k in ("case", "frames", "segments", "rounds", "ms",
                                              "plain_cpu_ms", "bound_ms")}
                       for c in davis["jpeg_cases"]],
+            "damaged": davis["jpeg_damaged"] if name in ("jpeg_entropy", "jpeg_progressive")
+            else None,
             "batch_ms": {k: b["kernel_ms"].get(name) for k, b in davis["jpeg_batch"].items()},
         })
     for k in kernels:

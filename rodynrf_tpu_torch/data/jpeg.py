@@ -68,6 +68,13 @@ SCAN_WORDS = 2 + 5 * 3  # n scan components, MCUs per row, 3 × (plane, h, v, dc
 # then 3 × (plane, h, v)
 PSCAN_WORDS = 7 + 3 * 3
 COLOR_GRAY, COLOR_YCC, COLOR_RGB = 0, 1, 2
+# the parallel Huffman decode: bits of a subsequence (one decoder each), and
+# the zero bytes after the last segment (the kernels read aligned 32-bit
+# words; `data` is padded to whole words and DATA_PAD more bytes)
+SUBSEQ_BITS = 1024
+DATA_PAD = 16
+# how a scan's segments are decoded (pack sorts each round's segments so)
+SCAN_FIRST, SCAN_DC_REFINE, SCAN_AC_REFINE = 0, 1, 2
 
 # status word of one entropy-coded segment
 STATUS_OK, STATUS_BAD_CODE, STATUS_BAD_AC, STATUS_SHORT, STATUS_BAD_BAND = 0, 1, 2, 3, 4
@@ -571,15 +578,32 @@ class JpegBatch:
           Ss, Se, Ah, Al, then per scan component its plane, h, v (1, 1
           when not interleaved);
     phuff int32 [Np, 3, HUFF_WORDS]: each scan component's table;
-    rounds [(first segment, segments)]: round k holds scan k of every
-          progressive frame that has one, launched after round k - 1;
+    rounds [(first segment, segments)]: the progressive scans in rounds,
+          launched one after another: a scan goes in the first round after
+          every earlier scan of its frame that touches a coefficient it
+          touches (a component in common and overlapping bands), so the
+          scans of one round write disjoint coefficients and read only what
+          earlier rounds wrote (libjpeg's standard script: its five first
+          scans in round 0, the Y AC refinement to Al 1, the DC and the
+          chroma refinements in round 1, the Y refinement to Al 0 in round
+          2);
+    round_kinds [(first scans, DC refinements, AC refinements)]: the
+          segments of each round by kind, in that order (a first scan is
+          decoded in parallel, a DC refinement bit by bit, an AC refinement
+          by one walker per segment);
     plane_block0 int64 [P + 1]: each component plane's first block;
     plane int32 [P, 8]: blocks per row, block rows, samples per row, rows,
           horizontal and vertical upsampling factor, fancy flag, frame;
     plane_pix0 int64 [P]: first byte of the plane's samples;
     quant int32 [P, 64];
     frame int32 [F, 5]: H, W, colour, components, first plane;
-    frame_pix0 int64 [F + 1]: first output pixel of each frame.
+    frame_pix0 int64 [F + 1]: first output pixel of each frame;
+    sub0  int32 [S + 1], psub0 int32 [Sp + 1]: the subsequence tables of
+          the parallel Huffman decode at `subseq_bits` bits a subsequence:
+          segment s is cut into subsequences sub0[s] .. sub0[s + 1] - 1
+          (at least one; none for a progressive refinement segment).
+    `data` ends in DATA_PAD zero bytes, so that a kernel may read whole
+    words past a segment's last byte.
     """
 
     data: torch.Tensor
@@ -595,27 +619,57 @@ class JpegBatch:
     quant: torch.Tensor
     frame: torch.Tensor
     frame_pix0: torch.Tensor
+    sub0: torch.Tensor
+    psub0: torch.Tensor
     n_blocks: int
     n_plane_bytes: int
     n_pixels: int
     frames: List[JpegFrame]
     rounds: List[tuple] = field(default_factory=list)
+    round_kinds: List[tuple] = field(default_factory=list)
     scans: List[Scan] = field(default_factory=list)  # row i of pscan
+    seg_nbits: np.ndarray = None  # host copies: each segment's bits
+    pseg_nbits: np.ndarray = None
+    pseg_first: np.ndarray = None  # a progressive segment of a first scan
+    subseq_bits: int = 0
 
     _TENSORS = ("data", "seg", "scan", "huff", "pseg", "pscan", "phuff", "plane_block0",
-                "plane", "plane_pix0", "quant", "frame", "frame_pix0")
+                "plane", "plane_pix0", "quant", "frame", "frame_pix0", "sub0", "psub0")
+    _HOST = ("n_blocks", "n_plane_bytes", "n_pixels", "frames", "rounds", "round_kinds",
+             "scans", "seg_nbits", "pseg_nbits", "pseg_first", "subseq_bits")
 
     def to(self, device) -> "JpegBatch":
         kw = {k: getattr(self, k).to(device) for k in self._TENSORS}
-        return JpegBatch(**kw, n_blocks=self.n_blocks, n_plane_bytes=self.n_plane_bytes,
-                         n_pixels=self.n_pixels, frames=self.frames, rounds=self.rounds,
-                         scans=self.scans)
+        return JpegBatch(**kw, **{k: getattr(self, k) for k in self._HOST})
+
+    def subseq_tables(self, subseq_bits: int) -> dict:
+        """The parallel decode's tables at `subseq_bits` bits a subsequence,
+        made once per length: `sub0`, `psub0` (each segment's first
+        subsequence) and `subseg`, `psubseg` (each subsequence's segment)
+        on the batch's device; `host_sub0`, `host_psub0` in numpy."""
+        cache = self.__dict__.setdefault("_subseq_cache", {})
+        if subseq_bits not in cache:
+            h = subseq_table(self.seg_nbits, None, subseq_bits)
+            hp = subseq_table(self.pseg_nbits, self.pseg_first, subseq_bits)
+            dev = self.data.device
+
+            def owner(t):  # int32 [subsequences]: the segment of each
+                return torch.from_numpy(np.repeat(np.arange(len(t) - 1, dtype=np.int32),
+                                                  np.diff(t))).to(dev)
+
+            same = subseq_bits == self.subseq_bits
+            cache[subseq_bits] = {
+                "sub0": self.sub0 if same else torch.from_numpy(h).to(dev),
+                "psub0": self.psub0 if same else torch.from_numpy(hp).to(dev),
+                "subseg": owner(h), "psubseg": owner(hp), "host_sub0": h, "host_psub0": hp}
+        return cache[subseq_bits]
 
 
 def pack(frames: Sequence[JpegFrame]) -> JpegBatch:
     """Lay parsed frames out as one batch (`JpegBatch`): segments, tables,
     component planes and output pixels back to back, frame after frame; the
-    progressive frames' segments grouped into rounds of scans."""
+    progressive frames' segments grouped into rounds of scans that touch
+    disjoint coefficients."""
     data, seg, scan, planes, plane_block0, plane_pix0, quant, fr, pix0 = ([] for _ in range(9))
     nbytes = nblocks = npix = nplane = 0
     by_round: Dict[int, list] = {}  # round -> [(segment bytes, scan row, first unit, units)]
@@ -644,7 +698,10 @@ def pack(frames: Sequence[JpegFrame]) -> JpegBatch:
             seg.append([nbytes, len(s), f_i, m0, min(per, f.n_mcu - m0)])
             data.append(s)
             nbytes += len(s)
+        scan_round = []  # after every earlier scan it shares a coefficient with
         for k, ps in enumerate(f.scans):
+            scan_round.append(max([scan_round[j] + 1 for j in range(k)
+                                   if _overlap(f.scans[j], ps)], default=0))
             row = [f_i, len(ps.comps), ps.units_x, ps.ss, ps.se, ps.ah, ps.al]
             for ci in ps.comps:
                 c = f.comps[ci]
@@ -653,22 +710,32 @@ def pack(frames: Sequence[JpegFrame]) -> JpegBatch:
             phuff.append(ps.huff)
             scans.append(ps)
             per = ps.restart or ps.n_units
+            kind = scan_kind(ps.ss, ps.ah)
             for s_i, s in enumerate(ps.segments):
                 m0 = s_i * per
-                by_round.setdefault(k, []).append((s, len(pscan) - 1, m0,
-                                                   min(per, ps.n_units - m0)))
-    pseg, rounds = [], []
+                by_round.setdefault(scan_round[k], []).append((kind, s, len(pscan) - 1, m0,
+                                                               min(per, ps.n_units - m0)))
+    pseg, rounds, round_kinds, pkind = [], [], [], []
     for k in sorted(by_round):
-        rounds.append((len(pseg), len(by_round[k])))
-        for s, row, m0, nu in by_round[k]:
+        segs = sorted(by_round[k], key=lambda x: x[0])  # stable: a scan's segments stay in order
+        rounds.append((len(pseg), len(segs)))
+        round_kinds.append(tuple(sum(1 for x in segs if x[0] == kind) for kind in range(3)))
+        for kind, s, row, m0, nu in segs:
             pseg.append([nbytes, len(s), row, m0, nu])
+            pkind.append(kind)
             data.append(s)
             nbytes += len(s)
     if nbytes >= 2 ** 31:  # the segment offsets are int32
         raise ValueError("batch too large: split the frames into several batches")
+    if max([len(s) for s in data] or [0]) >= 2 ** 28:  # bit positions are int32
+        raise ValueError("an entropy-coded segment of 256 MiB or more is not supported")
     plane_block0.append(nblocks)
     pix0.append(npix)
-    raw = b"".join(data) or bytes(1)  # torch.frombuffer refuses an empty buffer
+    raw = b"".join(data)
+    raw += bytes(DATA_PAD + -len(raw) % 4)
+    seg_nbits = np.array([8 * r[1] for r in seg], np.int64)
+    pseg_nbits = np.array([8 * r[1] for r in pseg], np.int64)
+    pseg_first = np.array([kind == SCAN_FIRST for kind in pkind], bool)
     return JpegBatch(
         data=torch.frombuffer(bytearray(raw), dtype=torch.uint8),
         seg=torch.tensor(seg, dtype=torch.int32).reshape(-1, 5),
@@ -684,8 +751,39 @@ def pack(frames: Sequence[JpegFrame]) -> JpegBatch:
         quant=torch.from_numpy(np.stack(quant).astype(np.int32)),
         frame=torch.tensor(fr, dtype=torch.int32).reshape(-1, 5),
         frame_pix0=torch.tensor(pix0, dtype=torch.int64),
+        sub0=torch.from_numpy(subseq_table(seg_nbits, None, SUBSEQ_BITS)),
+        psub0=torch.from_numpy(subseq_table(pseg_nbits, pseg_first, SUBSEQ_BITS)),
         n_blocks=nblocks, n_plane_bytes=nplane, n_pixels=npix, frames=list(frames),
-        rounds=rounds, scans=scans)
+        rounds=rounds, round_kinds=round_kinds, scans=scans, seg_nbits=seg_nbits,
+        pseg_nbits=pseg_nbits, pseg_first=pseg_first, subseq_bits=SUBSEQ_BITS)
+
+
+def _overlap(a: Scan, b: Scan) -> bool:
+    """Whether two scans of a frame touch a coefficient in common: a
+    component in common and overlapping bands (a DC scan's band is 0-0)."""
+    return bool(set(a.comps) & set(b.comps)) and a.ss <= b.se and b.ss <= a.se
+
+
+def scan_kind(ss: int, ah: int) -> int:
+    """SCAN_FIRST (a baseline scan, or a progressive DC or AC first scan),
+    SCAN_DC_REFINE or SCAN_AC_REFINE."""
+    return SCAN_FIRST if ah == 0 else SCAN_DC_REFINE if ss == 0 else SCAN_AC_REFINE
+
+
+def subseq_table(nbits: np.ndarray, first, subseq_bits: int) -> np.ndarray:
+    """int32 [n + 1]: the first subsequence of each segment of `nbits` bits
+    cut into `subseq_bits`-bit subsequences (at least one a segment; none
+    where `first` is False), and their total last."""
+    if subseq_bits < 32 or subseq_bits % 32:
+        raise ValueError(f"subseq_bits must be a positive multiple of 32, got {subseq_bits}")
+    n = np.maximum(1, -(-np.asarray(nbits, np.int64) // subseq_bits))
+    if first is not None:
+        n = np.where(first, n, 0)
+    out = np.zeros(len(n) + 1, np.int64)
+    np.cumsum(n, out=out[1:])
+    if out[-1] >= 2 ** 31:
+        raise ValueError("too many subsequences: raise subseq_bits or split the batch")
+    return out.astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -923,6 +1021,348 @@ def progressive_decode_plain(coef: torch.Tensor, batch: JpegBatch) -> torch.Tens
         status[s_i] = _decode_progressive_segment(data[off:off + n], comps, out, m0, nu,
                                                   units_x, ss, se, ah, al)
     return torch.from_numpy(status)
+
+
+# ---------------------------------------------------------------------------
+# models of the kernels' algorithms (csrc/jpeg_huff.cuh, jpeg_entropy.cu,
+# jpeg_progressive.cu), for the tests: the same passes in Python, held to
+# the plain versions on a machine without a card
+# ---------------------------------------------------------------------------
+
+_PAR_BASELINE, _PAR_DC_FIRST, _PAR_AC_FIRST = 0, 1, 2
+_NAT = NATURAL.tolist()
+
+
+class _ParSeg:
+    """One segment as the parallel decode sees it: its bits, its kind, the
+    blocks of one unit (`cyc`: per block of the unit its scan component, DC
+    and AC lookups, plane's first block and blocks per row, h, v, yy, xx)."""
+
+    def __init__(self, seg: bytes, kind, cyc, units_x, m0, nu, ss=0, se=63, al=0):
+        self.nbits = 8 * len(seg)
+        raw = np.frombuffer(seg + bytes(2), np.uint8).astype(np.int64)
+        self.w24 = ((raw[:-2] << 16) | (raw[1:-1] << 8) | raw[2:]).tolist() + [0] * 4096
+        self.kind, self.cyc, self.units_x, self.m0 = kind, cyc, units_x, m0
+        self.bpu, self.T = len(cyc), nu * len(cyc)
+        self.ss, self.se, self.al = ss, se, al
+        self.k0 = ss if kind == _PAR_AC_FIRST else 0
+
+    def block(self, n: int) -> int:
+        u, c = divmod(n, self.bpu)
+        _, _, _, b0, bw, h, v, yy, xx = self.cyc[c]
+        my, mx = divmod(self.m0 + u, self.units_x)
+        return b0 + (my * v + yy) * bw + mx * h + xx
+
+
+def _cycle(comps):
+    """The blocks of one unit: comps per scan component (DC lookup, AC
+    lookup, first block, blocks per row, h, v)."""
+    return [(j, dl, al_, b0, bw, h, v, yy, xx)
+            for j, (dl, al_, b0, bw, h, v) in enumerate(comps)
+            for yy in range(v) for xx in range(h)]
+
+
+def _par_run(sg: _ParSeg, state, stop, coef=None, n0=0, pred=None):
+    """One decoder of the parallel decode (csrc/jpeg_huff.cuh `par_run`):
+    from `state` (bit position, block of the unit, next coefficient k) to
+    the first symbol boundary at or past `stop` (no bound: None).
+
+    Without `coef` (the sync pass) it counts: returns (exit state, blocks
+    ended, DC differences per scan component, the first event or None). An
+    event is (status, block it happened in, counted from the start): a code
+    in no table or a run past the band, after which the decoder goes on
+    from the symbol's next bit at a unit's first block (a speculative
+    decoder meets such garbage before it syncs; on the true path the event
+    ends the segment, and what follows is not written), or a unit that ends
+    past the segment's bits (SHORT). With `coef` (the write pass) it writes
+    blocks n0, n0 + 1, ... of the segment, DC from the predictors `pred`,
+    and stops at the segment's last block or at its first event."""
+    p, c, k = state
+    w24, nbits, kind, al = sg.w24, sg.nbits, sg.kind, sg.al
+    se = 63 if kind == _PAR_BASELINE else sg.se
+    band_err = STATUS_BAD_AC if kind == _PAR_BASELINE else STATUS_BAD_BAND
+    n, dc, row, event = 0, [0, 0, 0], None, None
+    while True:
+        if stop is not None and p >= stop:
+            return (p, c, k), n, dc, event
+        if coef is not None:
+            if n0 + n >= sg.T:
+                return (p, c, k), n, dc, event
+            row = coef[sg.block(n0 + n)]
+        j, dlut, alut = sg.cyc[c][:3]
+        ended, bad, p_sym = 0, 0, p
+        if kind != _PAR_AC_FIRST and k == 0:  # a DC difference
+            e = dlut[(w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+            if not e:
+                bad = STATUS_BAD_CODE
+            else:
+                p += e >> 8
+                t, x = e & 255, 0
+                if t:
+                    x = ((w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - t)
+                    p += t
+                    if x < (1 << (t - 1)):
+                        x += (-1 << t) + 1
+                dc[j] += x
+                if row is not None:
+                    pred[j] += x
+                    row[0] = _wrap16(pred[j] << al)
+                if kind == _PAR_DC_FIRST:
+                    ended = 1
+                else:
+                    k = 1
+        else:  # an AC run/size symbol
+            e = alut[(w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+            r, s = (e & 255) >> 4, e & 15
+            if not e:
+                bad = STATUS_BAD_CODE
+            elif s and k + r > se:
+                bad = band_err
+            elif s:
+                p += e >> 8
+                k += r
+                x = ((w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - s)
+                p += s
+                if x < (1 << (s - 1)):
+                    x += (-1 << s) + 1
+                if row is not None:
+                    row[_NAT[k]] = _wrap16(x << al)
+                k += 1
+                ended = int(k > se)
+            elif r == 15:
+                p += e >> 8
+                k += 16
+                ended = int(k > se)
+            elif kind == _PAR_AC_FIRST:  # EOBr: this block and 2^r + bits - 1 more
+                p += e >> 8
+                ended = 1 << r
+                if r:
+                    ended += ((w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - r)
+                    p += r
+            else:
+                p += e >> 8
+                ended = 1
+        if bad:
+            if coef is not None:
+                return (p, c, k), n, dc, (bad, n)
+            if event is None:
+                event = (bad, n)
+            p, c, k = p_sym + 1, 0, sg.k0
+            continue
+        if ended:
+            n += ended
+            k = sg.k0
+            c += 1
+            if c == sg.bpu:  # a unit ends: the segment's bits must not be used up
+                c = 0
+                if p > nbits:
+                    if coef is not None:
+                        return (p, c, k), n, dc, (STATUS_SHORT, n - ended)
+                    if event is None:
+                        event = (STATUS_SHORT, n - ended)
+
+
+def _par_decode(sg: _ParSeg, subseq_bits: int, coef) -> tuple:
+    """The parallel decode of one segment: the sync pass's rounds to their
+    fixed point, the scans of blocks and DC differences with the segment's
+    first event, the write pass. Returns (status, sync rounds,
+    subsequences)."""
+    nsub = max(1, -(-sg.nbits // subseq_bits))
+    stops = [min((g + 1) * subseq_bits, sg.nbits) for g in range(nsub)]
+    # sync: every decoder from a guess (its first bit, a unit's first
+    # block), then from the exit its predecessor found in the round before,
+    # until no exit changes
+    entry = [(g * subseq_bits, 0, sg.k0) for g in range(nsub)]
+    rec = [_par_run(sg, entry[g], stops[g]) for g in range(nsub)]
+    rounds = 1
+    while True:
+        new, changed = list(rec), 0
+        for g in range(1, nsub):
+            if rec[g - 1][0] == entry[g]:
+                continue
+            entry[g] = rec[g - 1][0]
+            new[g] = _par_run(sg, entry[g], stops[g])
+            changed += new[g][0] != rec[g][0]
+        rec = new
+        rounds += 1
+        if not changed:
+            break
+    # the exclusive scans; the first event in the segment's blocks ends it
+    status, n0, pred = STATUS_OK, 0, [0, 0, 0]
+    for g in range(nsub):
+        ev = _par_run(sg, entry[g], None if g == nsub - 1 else stops[g], coef, n0,
+                      list(pred))[3]
+        if ev is not None:
+            return ev[0], rounds, nsub
+        ev = rec[g][3]
+        if ev is not None and n0 + ev[1] < sg.T:
+            raise AssertionError("the write pass missed the sync pass's event")
+        n0 += rec[g][1]
+        pred = [a + b for a, b in zip(pred, rec[g][2])]
+    return status, rounds, nsub
+
+
+def _read_bits(w24, p: int, n: int) -> int:
+    """n bits from bit p, most significant first (any n)."""
+    x = 0
+    while n > 0:
+        m = min(n, 16)
+        x = (x << m) | (((w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - m))
+        p += m
+        n -= m
+    return x
+
+
+def _ac_refine_masked(seg: bytes, b0, bw, units_x, m0, nu, ss, se, al, lut, coef) -> int:
+    """The AC refinement walker of csrc/jpeg_progressive.cu over one
+    segment: each block's nonzero history as a bit mask over the band; a
+    symbol's target is the (r+1)-th still-zero coefficient from k (a mask
+    search here, a lookup in the block's table of still-zero positions on
+    the card), the correction bits before it one read of popcount(history
+    in [k, target)) bits; an end-of-band run's blocks take their bits at the
+    prefix sums of their history popcounts (32 blocks at a time, a warp's
+    lanes on the card). Returns the status word."""
+    nbits = 8 * len(seg)
+    raw = np.frombuffer(seg + bytes(2), np.uint8).astype(np.int64)
+    w24 = ((raw[:-2] << 16) | (raw[1:-1] << 8) | raw[2:]).tolist() + [0] * 4096
+    p1, m1 = 1 << al, -1 << al
+    band = ((1 << (se + 1)) - 1) & ~((1 << ss) - 1)
+
+    def row_of(u):
+        my, mx = divmod(m0 + u, units_x)
+        return coef[b0 + my * bw + mx]
+
+    def history(row):
+        return sum(1 << k for k in range(ss, se + 1) if row[_NAT[k]])
+
+    def correct(row, cmask, q):  # cmask's coefficients take bits q, q + 1, ...
+        nc = bin(cmask).count("1")
+        word = _read_bits(w24, q, nc)
+        i = nc
+        while cmask:
+            k = (cmask & -cmask).bit_length() - 1
+            cmask &= cmask - 1
+            i -= 1
+            if (word >> i) & 1:
+                z = int(row[_NAT[k]])
+                if not z & p1:
+                    row[_NAT[k]] = _wrap16(z + (p1 if z >= 0 else m1))
+        return q + nc
+
+    p = u = eobrun = 0
+    while u < nu:
+        if eobrun == 0:  # one block's symbols
+            row = row_of(u)
+            hist = history(row)
+            k = ss
+            while k <= se:
+                e = lut[(w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+                if not e:
+                    return STATUS_BAD_CODE
+                p += e >> 8
+                r, s = (e & 255) >> 4, e & 15
+                val = 0
+                if s:  # a newly nonzero coefficient, its sign bit
+                    val = p1 if (w24[p >> 3] >> (23 - (p & 7))) & 1 else m1
+                    p += 1
+                elif r != 15:
+                    eobrun = (1 << r) + _read_bits(w24, p, r)
+                    p += r
+                    break
+                zeros = ~hist & band & ~((1 << k) - 1)
+                for _ in range(r):
+                    zeros &= zeros - 1
+                t = (zeros & -zeros).bit_length() - 1 if zeros else se + 1
+                p = correct(row, hist & ~((1 << k) - 1) & ((1 << t) - 1), p)
+                if val:
+                    if t > se:
+                        return STATUS_BAD_BAND
+                    row[_NAT[t]] = val
+                k = t + 1
+            if eobrun:  # the band's rest in an end-of-band block
+                p = correct(row, hist & ~((1 << k) - 1), p)
+                eobrun -= 1
+            u += 1
+            if p > nbits:
+                return STATUS_SHORT
+        else:  # the run's next blocks, 32 at a time
+            n = min(eobrun, nu - u, 32)
+            rows = [row_of(u + i) for i in range(n)]
+            hists = [history(r) for r in rows]
+            ends = np.cumsum([bin(h).count("1") for h in hists]).tolist()
+            for i in range(n):
+                correct(rows[i], hists[i], p + (ends[i - 1] if i else 0))
+                if p + ends[i] > nbits:
+                    return STATUS_SHORT
+            p += ends[-1]
+            u += n
+            eobrun -= n
+    return STATUS_OK
+
+
+def _baseline_parseg(batch: JpegBatch, s_i: int, data: bytes) -> _ParSeg:
+    off, n, f_i, m0, nmcu = (int(x) for x in batch.seg[s_i])
+    sc = batch.scan[f_i].tolist()
+    luts = batch.frames[f_i].luts
+    comps = []
+    for j in range(sc[0]):
+        pl, h, v, dc, ac = sc[2 + 5 * j:7 + 5 * j]
+        comps.append((luts[dc], luts[ac], int(batch.plane_block0[pl]),
+                      int(batch.plane[pl, 0]), h, v))
+    return _ParSeg(data[off:off + n], _PAR_BASELINE, _cycle(comps), sc[1], m0, nmcu)
+
+
+def entropy_decode_model(batch: JpegBatch, subseq_bits: int = SUBSEQ_BITS):
+    """The baseline kernel's algorithm in Python: (coef, status, {"rounds":
+    the most sync rounds of a segment, "subsequences": their total})."""
+    coef = np.zeros((batch.n_blocks, 64), np.int16)
+    data = batch.data.numpy().tobytes()
+    status = np.zeros(batch.seg.shape[0], np.int32)
+    info = {"rounds": 0, "subsequences": 0}
+    for s_i in range(batch.seg.shape[0]):
+        status[s_i], rounds, nsub = _par_decode(_baseline_parseg(batch, s_i, data),
+                                                subseq_bits, coef)
+        info["rounds"] = max(info["rounds"], rounds)
+        info["subsequences"] += nsub
+    return torch.from_numpy(coef), torch.from_numpy(status), info
+
+
+def progressive_decode_model(coef: torch.Tensor, batch: JpegBatch,
+                             subseq_bits: int = SUBSEQ_BITS):
+    """The progressive kernel's algorithm in Python, round after round, on
+    coef in place: first scans by the parallel decode, DC refinements bit by
+    bit, AC refinements by the mask-driven walker. Returns (status, info as
+    entropy_decode_model's)."""
+    out = coef.numpy()
+    data = batch.data.numpy().tobytes()
+    plane, b0 = batch.plane.numpy(), batch.plane_block0.numpy()
+    status = np.zeros(batch.pseg.shape[0], np.int32)
+    info = {"rounds": 0, "subsequences": 0}
+    for s_i, (off, n, row, m0, nu) in enumerate(batch.pseg.tolist()):
+        f_i, ns, units_x, ss, se, ah, al = batch.pscan[row, :7].tolist()
+        luts = batch.scans[row].luts
+        comps = []
+        for j in range(ns):
+            pl, h, v = batch.pscan[row, 7 + 3 * j:10 + 3 * j].tolist()
+            comps.append((luts[j], luts[j], int(b0[pl]), int(plane[pl, 0]), h, v))
+        seg = data[off:off + n]
+        kind = scan_kind(ss, ah)
+        if kind == SCAN_FIRST:
+            sg = _ParSeg(seg, _PAR_DC_FIRST if ss == 0 else _PAR_AC_FIRST, _cycle(comps),
+                         units_x, m0, nu, ss, se, al)
+            status[s_i], rounds, nsub = _par_decode(sg, subseq_bits, out)
+            info["rounds"] = max(info["rounds"], rounds)
+            info["subsequences"] += nsub
+        elif kind == SCAN_DC_REFINE:  # bit i is the i-th block's
+            sg = _ParSeg(seg, _PAR_DC_FIRST, _cycle(comps), units_x, m0, nu)
+            for i in range(min(sg.T, sg.nbits)):
+                if (seg[i >> 3] >> (7 - (i & 7))) & 1:
+                    out[sg.block(i), 0] |= 1 << al
+            status[s_i] = STATUS_SHORT if sg.T > sg.nbits else STATUS_OK
+        else:
+            status[s_i] = _ac_refine_masked(seg, comps[0][2], comps[0][3], units_x, m0, nu,
+                                            ss, se, al, luts[0], out)
+    return torch.from_numpy(status), info
 
 
 _FIX = dict(c0_298631336=2446, c0_390180644=3196, c0_541196100=4433, c0_765366865=6270,

@@ -551,3 +551,73 @@ def write_jpeg(path: str, img, quality: int = 90, subsampling: str = "420",
     head += seg(0xDA, sos)
     with open(path, "wb") as f:
         f.write(head + bytes(out) + b"\xff\xd9")
+
+
+def _entropy_ranges(data: bytes):
+    """[(scan, [(start, end) of each entropy-coded segment])] of a JPEG
+    file's bytes: the data after each SOS header, split at its restart
+    markers, up to the marker that ends the scan."""
+    out, pos = [], 0
+    while True:
+        i = data.find(b"\xff\xda", pos)
+        if i < 0:
+            return out
+        a = i + 2 + int.from_bytes(data[i + 2:i + 4], "big")
+        segs, s0, j = [], a, a
+        while True:
+            j = data.index(b"\xff", j)
+            nxt = data[j + 1]
+            if nxt in (0x00, 0xFF):
+                j += 1
+                continue
+            if 0xD0 <= nxt <= 0xD7:
+                segs.append((s0, j))
+                s0 = j = j + 2
+                continue
+            segs.append((s0, j))
+            break
+        out.append((len(out), segs))
+        pos = j
+
+
+def damaged_jpegs(paths, out_dir: str, seed: int = 0):
+    """Copies of JPEG files with damaged entropy-coded data that still parse
+    (the markers, restart markers and scans intact), for holding the
+    decoders' status words and the blocks they leave to the plain
+    versions': per file, `flip` (a few bytes of one segment replaced),
+    `cut` (the second half of one segment deleted: it ends early) and `ones`
+    (a stretch of one segment replaced by stuffed 0xFF bytes: all-ones
+    bits). Returns the paths written."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    written = []
+    for p in paths:
+        data = open(p, "rb").read()
+        segs = [s for _, ss in _entropy_ranges(data) for s in ss if s[1] - s[0] >= 8]
+        stem = os.path.splitext(os.path.basename(p))[0]
+        for kind in ("flip", "cut", "ones"):
+            a, b = segs[int(rng.integers(len(segs)))]
+            d = bytearray(data)
+            if kind == "flip":  # bytes away from any 0xFF, replaced by bytes below 0xFF
+                ok = [i for i in range(a + 1, b - 1) if 0xFF not in d[i - 1:i + 2]]
+                for i in rng.choice(ok, min(3, len(ok)), replace=False) if ok else []:
+                    d[i] = int(rng.integers(0, 0xFF))
+            elif kind == "cut":
+                c = (a + b) // 2
+                while c > a and d[c - 1] == 0xFF:
+                    c -= 1
+                del d[c:b]
+            else:
+                c = (a + b) // 2
+                while c > a and d[c - 1] == 0xFF:
+                    c -= 1
+                n = min(8, (b - c) // 2)
+                d[c:c + 2 * n] = b"\xff\x00" * n
+            out = os.path.join(out_dir, f"{stem}_{kind}.jpg")
+            with open(out, "wb") as f:
+                f.write(bytes(d))
+            written.append(out)
+    return written

@@ -17,6 +17,13 @@ tests/test_torch_jpeg_progressive.py):
   files raise ValueError naming the marker;
 - the port reads JPEG scenes with PIL blocked; without a card the decoder
   and the loader refuse their default device;
+- the model of the baseline kernel's algorithm (`entropy_decode_model`: the
+  self-synchronising parallel decode, its sync rounds, block and DC scans
+  and write pass) equals the plain version bit for bit, blocks and status
+  words, on every fixture and on restart-marker frames at subsequences of
+  32 bits up (every decoder syncs many times), and on damaged files (the
+  corrupt file of the refusal cases, flipped bytes, segments cut short,
+  runs of all-ones bits);
 - chip_smoke.py phase 14 rehearses on the CPU at a small size.
 The kernels against these plain versions on the card:
 tests/test_torch_kernels.py.
@@ -213,7 +220,8 @@ def test_chip_smoke_davis_phase_rehearses_on_the_cpu(monkeypatch):
     a progressive scene of 4 frames of 48×32, batch 128, 32³ in place of
     256³; the card's memory calls stubbed, the table-gradient counters set
     to what the CPU's plain versions count, the JPEG wrappers counted as the
-    card counts them: one per call, the progressive decode one per round):
+    card counts them: the baseline decode's three passes, the progressive
+    decode's launches by the kinds of its rounds, one IDCT, one colour pass):
     the fixtures and frames through the stages, the preprocessing commands
     with --zfill 5, the recipe through cli.main, the timed trainers, the
     progressive scene through load_scene and cli.main, and its checkpoint
@@ -237,9 +245,11 @@ def test_chip_smoke_davis_phase_rehearses_on_the_cpu(monkeypatch):
     for name in cs.JPEG_KERNELS:
         def counted(*a, _fn=getattr(K, name), _name=name, **kw):
             batch = a[-1]  # every wrapper takes the batch last
-            getattr(K, _name).launches += (int(batch.seg.shape[0] > 0) if _name == "jpeg_entropy"
-                                           else len(batch.rounds)
-                                           if _name == "jpeg_progressive" else 1)
+            getattr(K, _name).launches += (
+                3 * int(batch.seg.shape[0] > 0) if _name == "jpeg_entropy"
+                else cs.one_batch_launches(False, batch.round_kinds)["jpeg_progressive"]
+                if _name == "jpeg_progressive"
+                else 1)
             return _fn(*a, **kw)
         counted.launches = 0
         monkeypatch.setattr(K, name, counted)
@@ -247,16 +257,69 @@ def test_chip_smoke_davis_phase_rehearses_on_the_cpu(monkeypatch):
     assert [r["path"] for r in records] == ["davis_cli", "davis_16", "davis_256",
                                             "davis_progressive"]
     one = cs.one_batch_launches()
-    assert one == {"jpeg_entropy": 1, "jpeg_progressive": 0, "jpeg_idct": 1, "jpeg_color": 1}
+    assert one == {"jpeg_entropy": 3, "jpeg_progressive": 0, "jpeg_idct": 1, "jpeg_color": 1}
     assert records[0]["launches"] == records[1]["launches"] == {**zero, **one}
     assert records[2]["launches"] == {**zero, **{k: 0 for k in one}}
-    assert records[3]["launches"] == {**zero, **cs.one_batch_launches(False, 10)}
+    # libjpeg's standard script in three rounds: its five first scans (sync,
+    # scan, write); the DC refinement and three AC refinements (Y to Al 1,
+    # Cb, Cr); the Y refinement to Al 0
+    kinds = davis["jpeg_cases"][4]["round_kinds"]
+    assert [[bool(n) for n in k] for k in kinds] == [[True, False, False],
+                                                     [False, True, True], [False, False, True]]
+    assert records[3]["launches"] == {**zero, **cs.one_batch_launches(False, kinds)}
+    assert records[3]["launches"]["jpeg_progressive"] == 6
     assert davis["steps"]["davis_256"]["grid"] == [31, 31, 31]
     assert all(np.isfinite(davis["cli"]["losses"])) and len(davis["cli"]["psnrs"]) == 4
     assert len(davis["progressive"]["losses"]) == 1 and len(davis["progressive"]["psnrs"]) == 4
     assert davis["progressive"]["render_only_psnrs_equal"]
+    # damaged copies of every fixture and of a frame of each scene, with and
+    # without restart markers: the plain versions flag corrupt and short
+    # segments (the models equal them: test_decode_models_on_damaged_files)
+    assert davis["jpeg_damaged"][0]["frames"] == 3 * 22
     # the scene's 4 frames as the loader's one batch, a restart frame, every
     # fixture (10 baseline + 8 progressive), the progressive scene's frames
     cases = [(c["frames"], c["segments"], c["progressive_frames"], c["rounds"])
              for c in davis["jpeg_cases"]]
-    assert cases[1:] == [(4, 4, 0, 0), (1, 2, 0, 0), (18, 24, 8, 10), (4, 0, 4, 10)]
+    assert cases[1:] == [(4, 4, 0, 0), (1, 2, 0, 0), (18, 24, 8, 3), (4, 0, 4, 3)]
+
+
+@pytest.mark.parametrize("subseq_bits", [32, 96, 1024, J.SUBSEQ_BITS],
+                         ids=["32", "96", "1024", "default"])
+def test_parallel_decode_model_equals_plain(subseq_bits, tmp_path):
+    paths = [str(FIXTURES / n) for n in BASELINE]
+    rng = np.random.default_rng(subseq_bits)
+    for i, (sub, restart) in enumerate([("420", 0), ("422", 1), ("444", 2), ("440", 3)]):
+        img = rng.integers(0, 256, (24 + 8 * i, 40, 3), dtype=np.uint8)
+        paths.append(str(tmp_path / f"{i}.jpg"))
+        write_jpeg(paths[-1], img, 80, sub, restart)
+    host = J.pack([J.read_jpeg(p) for p in paths])
+    coef, status = J.entropy_decode_plain(host)
+    got, got_status, info = J.entropy_decode_model(host, subseq_bits)
+    assert torch.equal(got, coef) and torch.equal(got_status, status) and not status.any()
+    assert info["subsequences"] >= host.seg.shape[0]
+    if subseq_bits == 32:  # many decoders a segment, each syncing with its predecessor
+        assert info["subsequences"] > 20 * host.seg.shape[0] and info["rounds"] > 10
+
+
+def test_decode_models_on_damaged_files(tmp_path):
+    """Both kernels' models on damaged baseline and progressive files, at a
+    short and the default subsequence length: the status words and the
+    blocks equal the plain versions'."""
+    from rodynrf_tpu_torch.testing import damaged_jpegs
+
+    name = "rgb420_q95_48x64.jpg"
+    corrupt = _patched(tmp_path, name, lambda d: d.__setitem__(
+        slice(_scan(d), _scan(d) + 64), b"\xff\x00" * 32))  # the refusal case "corrupt"
+    paths = [corrupt] + damaged_jpegs(sorted(str(p) for p in FIXTURES.glob("*.jpg")),
+                                      str(tmp_path), seed=3)
+    host = J.pack([J.read_jpeg(p) for p in paths])
+    coef, status = J.entropy_decode_plain(host)
+    base = coef.clone()
+    pstatus = J.progressive_decode_plain(coef, host)
+    assert status[0] == J.STATUS_BAD_CODE
+    assert {J.STATUS_BAD_CODE, J.STATUS_SHORT} <= set(status.tolist()) & set(pstatus.tolist())
+    for subseq_bits in (64, J.SUBSEQ_BITS):
+        got, got_status, _ = J.entropy_decode_model(host, subseq_bits)
+        assert torch.equal(got_status, status) and torch.equal(got, base)
+        got_p, _ = J.progressive_decode_model(got, host, subseq_bits)
+        assert torch.equal(got_p, pstatus) and torch.equal(got, coef)

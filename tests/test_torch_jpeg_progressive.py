@@ -15,13 +15,21 @@ jpeg.py) on the CPU, where the stages run their plain versions:
   package's (PIL + LANCZOS), and `read_frames` / `image_size` read them;
 - invalid progressions and scans that refer to undefined tables raise
   ValueError naming the file (the incomplete script and SOF10:
-  test_torch_jpeg.py's refusal cases).
+  test_torch_jpeg.py's refusal cases);
+- the model of the progressive kernel's algorithm
+  (`progressive_decode_model`: first scans by the parallel decode, DC
+  refinements bit by bit, AC refinements by the mask-driven walker with its
+  end-of-band runs placed by prefix sums) equals the plain version bit for
+  bit on every fixture at subsequences of 32 bits up, and on random images
+  under random writer scripts and lengths (a hypothesis property).
 The kernel against the plain version on the card: tests/test_torch_kernels.py.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from PIL import Image
 
 from rodynrf_tpu.data.video_dataset import load_davis_scene as jload_davis
@@ -97,19 +105,25 @@ def test_mixed_batch_equals_pil():
     paths = [str(FIXTURES / n) for n in sorted(BASELINE + PROGRESSIVE)]
     host = J.pack([J.read_jpeg(p) for p in paths])
     n_prog = sum(1 for p in paths if "progressive" in p)
-    # baseline segments on their own path; round k holds scan k of every
-    # progressive frame (the gray fixture has 6 scans, the others 10)
+    # baseline segments on their own path; the progressive scans in rounds:
+    # a scan after every earlier scan of its frame that shares a
+    # coefficient with it, as early as that allows (libjpeg's standard
+    # script of 10 scans and the gray fixture's 6 both take three rounds)
     assert host.seg.shape[0] == sum(len(f.segments) for f in host.frames)
-    assert len(host.rounds) == 10 and host.rounds[0][1] >= n_prog
+    assert len(host.rounds) == 3 and host.rounds[0][1] >= n_prog
     assert int(host.pscan.shape[0]) == sum(len(f.scans) for f in host.frames)
     rows = [int(host.pseg[s, 2]) for s in range(host.pseg.shape[0])]
+    round_of = {}
     for k, (s0, n) in enumerate(host.rounds):
-        f_scan = {}
         for r in rows[s0:s0 + n]:
-            f_scan.setdefault(int(host.pscan[r, 0]), set()).add(r)
-        for f_i, rs in f_scan.items():
-            first = int((host.pscan[:, 0] == f_i).nonzero()[0])
-            assert rs == {first + k}
+            assert round_of.setdefault(r, k) == k  # a scan's segments in one round
+    assert sorted(round_of) == list(range(host.pscan.shape[0]))
+    scans = host.scans
+    for a in round_of:
+        earlier = [b for b in range(a) if int(host.pscan[b, 0]) == int(host.pscan[a, 0])
+                   and set(scans[a].comps) & set(scans[b].comps)
+                   and scans[a].ss <= scans[b].se and scans[b].ss <= scans[a].se]
+        assert round_of[a] == max([round_of[b] + 1 for b in earlier], default=0)
     for path, got in zip(paths, J.decode_jpegs(paths, device="cpu")):
         np.testing.assert_array_equal(got.numpy(), _pil(path), err_msg=path)
 
@@ -206,3 +220,40 @@ def test_preprocessing_commands_read_progressive_frames(tmp_path):
     scene = load_scene(args, "cpu")
     assert scene.n_frames == 3 and scene.img_wh == (32, 32)
     assert np.isfinite(scene.rgbs_stack).all() and np.isfinite(scene.disps).all()
+
+
+def _models_equal_plain(host, subseq_bits):
+    coef, status = J.entropy_decode_plain(host)
+    pstatus = J.progressive_decode_plain(coef, host)
+    got, got_status, _ = J.entropy_decode_model(host, subseq_bits)
+    got_p, info = J.progressive_decode_model(got, host, subseq_bits)
+    assert torch.equal(got_status, status) and torch.equal(got_p, pstatus)
+    assert torch.equal(got, coef)
+    return pstatus, info
+
+
+@pytest.mark.parametrize("subseq_bits", [32, 96, 1024, J.SUBSEQ_BITS],
+                         ids=["32", "96", "1024", "default"])
+def test_progressive_model_equals_plain_on_the_fixtures(subseq_bits):
+    paths = [str(FIXTURES / n) for n in sorted(BASELINE + PROGRESSIVE)]
+    host = J.pack([J.read_jpeg(p) for p in paths])
+    pstatus, info = _models_equal_plain(host, subseq_bits)
+    assert not pstatus.any()
+    assert {k for kinds in host.round_kinds for k, n in enumerate(kinds) if n} == {0, 1, 2}
+    if subseq_bits == 32:  # the first scans' segments cut into many subsequences
+        assert info["subsequences"] > 2 * int(host.pseg_first.sum()) and info["rounds"] > 5
+
+
+@settings(max_examples=8, deadline=None, database=None)
+@given(seed=st.integers(0, 2 ** 16), h=st.integers(1, 40), w=st.integers(1, 40),
+       sub=st.sampled_from(["444", "422", "420", "440", "gray"]),
+       script=st.sampled_from([False, True, "spectral", "dc_sa"]),
+       restart=st.sampled_from([0, 1, 3]), subseq_bits=st.sampled_from([32, 64, 160, 1024]))
+def test_models_equal_plain_on_random_images(tmp_path_factory, seed, h, w, sub, script, restart,
+                                             subseq_bits):
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (h, w) if sub == "gray" else (h, w, 3), dtype=np.uint8)
+    path = str(tmp_path_factory.mktemp("prop") / "x.jpg")
+    write_jpeg(path, img, int(rng.integers(30, 96)), "444" if sub == "gray" else sub, restart,
+               progressive=script)
+    _models_equal_plain(J.pack([J.read_jpeg(path)]), subseq_bits)

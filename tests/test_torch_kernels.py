@@ -402,8 +402,9 @@ def test_jpeg_kernels_match_their_plain_versions(restart, tmp_path):
     planes = K.jpeg_idct(coef, card)
     rgb = K.jpeg_color(planes, card)
     torch.cuda.synchronize()
+    # the entropy decode's sync, scan and write passes; one IDCT, one colour pass
     assert (K.jpeg_entropy.launches, K.jpeg_idct.launches, K.jpeg_color.launches) == tuple(
-        n + 1 for n in before)
+        n + k for n, k in zip(before, (3, 1, 1)))
     assert not st_p.any()
     for got, want in ((coef, coef_p), (st, st_p), (planes, planes_p), (rgb, rgb_p)):
         assert torch.equal(got.cpu(), want)
@@ -415,9 +416,11 @@ def test_jpeg_progressive_kernel_matches_its_plain_version(restart, tmp_path):
     """csrc/jpeg_progressive.cu on the committed fixtures (baseline and
     progressive in one batch) and on progressive write_jpeg frames of every
     subsampling under the writer's three scan scripts, with and without
-    restart markers: one launch per round; once every round has run, the
-    blocks and the status words equal the plain version's bit for bit, and
-    so do the pixels that the IDCT and colour kernels make of them."""
+    restart markers: three rounds of scans that touch disjoint coefficients,
+    per round three launches for its first scans, one for its DC
+    refinements and one for its AC refinements; once every round has run,
+    the blocks and the status words equal the plain version's bit for bit,
+    and so do the pixels that the IDCT and colour kernels make of them."""
     from rodynrf_tpu_torch.data import jpeg as J
     from rodynrf_tpu_torch.ops import jpeg as K
     from rodynrf_tpu_torch.testing import write_jpeg
@@ -442,7 +445,91 @@ def test_jpeg_progressive_kernel_matches_its_plain_version(restart, tmp_path):
     pst = K.jpeg_progressive(coef, card)
     rgb = K.jpeg_color(K.jpeg_idct(coef, card), card)
     torch.cuda.synchronize()
-    assert K.jpeg_progressive.launches == before + len(host.rounds) == before + 10
+    assert len(host.rounds) == 3
+    assert K.jpeg_progressive.launches == before + sum(
+        3 * bool(nf) + bool(ndc) + bool(nac) for nf, ndc, nac in host.round_kinds)
     assert not pst_p.any()
     for got, want in ((coef, coef_p), (pst, pst_p), (rgb, rgb_p)):
         assert torch.equal(got.cpu(), want)
+
+
+def _jpeg_batch_paths(tmp_path, seed, restart):
+    """The committed fixtures, and write_jpeg frames of every subsampling,
+    baseline and under the three progressive scripts, one of them 96×128
+    (several 1,024-bit subsequences a segment)."""
+    from rodynrf_tpu_torch.testing import write_jpeg
+
+    rng = np.random.default_rng(seed)
+    paths = [str(p) for p in sorted((REPO / "tests" / "data" / "jpeg").glob("*.jpg"))]
+    for i, (sub, (h, w)) in enumerate([("444", (17, 23)), ("422", (33, 9)), ("420", (40, 56)),
+                                       ("440", (31, 45)), ("gray", (24, 24)),
+                                       ("420", (96, 128))]):
+        yy, xx = np.mgrid[:h, :w]
+        img = np.stack([xx * 2 + yy, 128 + 50 * np.sin(xx / 5.0), (xx * yy) % 256], -1)
+        img = np.clip(img + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+        if sub == "gray":
+            img = img[..., 0]
+        for script in (False, True, "spectral", "dc_sa"):
+            paths.append(str(tmp_path / f"{i}_{script}.jpg"))
+            write_jpeg(paths[-1], img, 85, "444" if sub == "gray" else sub, restart,
+                       progressive=script)
+    return paths
+
+
+def _jpeg_against_plain(paths, subseq_bits):
+    """Both entropy kernels at `subseq_bits` against their plain versions
+    on one batch of `paths`: blocks and status words bit for bit, and the
+    launches counted. Returns the plain status words."""
+    from rodynrf_tpu_torch.data import jpeg as J
+    from rodynrf_tpu_torch.ops import jpeg as K
+
+    dev = _card()
+    host = J.pack([J.read_jpeg(p) for p in paths])
+    card = host.to(dev)
+    coef_p, st_p = K.jpeg_entropy(host)
+    coef0_p = coef_p.clone()
+    pst_p = K.jpeg_progressive(coef_p, host)
+    before = (K.jpeg_entropy.launches, K.jpeg_progressive.launches)
+    coef, st = K.jpeg_entropy(card, subseq_bits)
+    coef0 = coef.clone()
+    pst = K.jpeg_progressive(coef, card, subseq_bits)
+    torch.cuda.synchronize()
+    assert (K.jpeg_entropy.launches, K.jpeg_progressive.launches) == (
+        before[0] + 3 * (host.seg.shape[0] > 0),
+        before[1] + sum(3 * bool(nf) + bool(ndc) + bool(nac)
+                        for nf, ndc, nac in host.round_kinds))
+    for got, want in ((st, st_p), (coef0, coef0_p), (pst, pst_p), (coef, coef_p)):
+        assert torch.equal(got.cpu(), want)
+    return st_p, pst_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subseq_bits", [32, 96, 1024])
+@pytest.mark.parametrize("restart", [0, 2])
+def test_jpeg_parallel_decode_at_subsequence_lengths(restart, subseq_bits, tmp_path):
+    """The parallel decode (baseline scans, progressive first scans) and the
+    refinement kernels at short subsequences, where every segment is cut
+    into many and every decoder has to sync, and at the default length:
+    equal to the plain versions bit for bit, with and without restart
+    markers."""
+    st, pst = _jpeg_against_plain(_jpeg_batch_paths(tmp_path, restart, restart), subseq_bits)
+    assert not st.any() and not pst.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subseq_bits", [32, 96, 1024])
+def test_jpeg_kernels_on_damaged_segments(subseq_bits, tmp_path):
+    """Damaged entropy-coded data (testing.damaged_jpegs: flipped bytes, a
+    segment cut short, a stretch of all-ones bits) in baseline and
+    progressive files with and without restart markers: the status words
+    (a code in no table, a run past the 64th coefficient or the band, a
+    segment that ends early) and the blocks the kernels leave equal the
+    plain versions'."""
+    from rodynrf_tpu_torch.testing import damaged_jpegs
+
+    out = tmp_path / "damaged"
+    out.mkdir()
+    paths = damaged_jpegs(_jpeg_batch_paths(tmp_path, 7, 3), str(out), seed=subseq_bits)
+    st, pst = _jpeg_against_plain(paths, subseq_bits)
+    codes = set(st.tolist()) | set(pst.tolist())
+    assert {1, 3} <= codes  # a code in no table, a segment that ends early
