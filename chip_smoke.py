@@ -187,9 +187,19 @@ result):
          subsequence lengths of JPEG_SWEEP; damaged copies
          (`testing.damaged_jpegs`) of every fixture and of a frame of each
          scene with and without restart markers, at 64-bit and the default
-         subsequences: status words and blocks as the plain versions'; then
-         each scene's 8 frames as one batch (`decode_jpegs` end to end, and
-         each kernel);
+         subsequences: status words and blocks as the plain versions', and
+         the planes and pixels the IDCT and colour kernels make of those
+         blocks; seeded extreme blocks (`testing.extreme_idct_blocks`:
+         ±32767 under quantisers up to 255, columns at and just past the
+         32-bit IDCT route's bound) through the IDCT and colour kernels;
+         frames that stress their tiles and edges (`testing.edge_jpegs`:
+         854×480, a frame smaller than a colour tile, widths 16k ± 1, the
+         3×4 box case, every subsampling and gray) as one batch; the two
+         kernels' nvcc -Xptxas -v registers, shared memory and spills; then
+         each scene's 8 frames as one batch (`decode_jpegs` end to end and
+         by part — read_jpeg, pack, the copies to the card, each kernel,
+         check_status, host clocks around synchronised parts — and each
+         kernel);
      14b. `preprocess flow | depth --out_dir dpt | mask`, each with --zfill 5,
          from phase 11's kind of random checkpoints: flow and depth read the
          frames as one batch through the kernels (the entropy decode's
@@ -337,6 +347,8 @@ JPEG_KERNELS = ("jpeg_entropy", "jpeg_progressive", "jpeg_idct", "jpeg_color")
 # (testing.write_jpeg's libjpeg standard script), as the loader's one batch
 DAVIS_PROGRESSIVE = dict(T=8, H=480, W=854)
 JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+# nvcc's -Xptxas -v report of each source this run compiled (phase 2)
+BUILD_REPORTS = {}
 # 14a: the entropy decodes of the two scenes' batches also at these
 # subsequence lengths (bits a decoder of the parallel decode)
 JPEG_SWEEP = (256, 4096)
@@ -478,9 +490,10 @@ def factored_bound_ms(M: int, R: int, nS: int, C: int, out_bytes: int):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def ptxas_summary(report: str):
-    """[(kernel, "N registers, S bytes spilled")] from nvcc's -Xptxas -v
-    report, names demangled by c++filt where the toolkit's host has it."""
+def ptxas_info(report: str) -> dict:
+    """{kernel: {"registers", "smem_bytes", "spill_bytes"}} from nvcc's
+    -Xptxas -v report, names demangled by c++filt where the toolkit's host
+    has it."""
     import re
     import shutil
 
@@ -494,6 +507,8 @@ def ptxas_summary(report: str):
             out[fn]["spill"] = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
         elif fn and "Used" in ln and "registers" in ln:
             out[fn]["regs"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[fn]["smem"] = int(smem.group(1)) if smem else 0
     names = list(out)
     if names and shutil.which("c++filt"):
         shown = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
@@ -501,9 +516,16 @@ def ptxas_summary(report: str):
         if len(shown) == len(names):
             names = [n.replace("segreduce::", "").replace("(anonymous namespace)::", "")
                      for n in shown]
-    return [(n.split("(")[0] if "(" in n else n,
-             f"{v.get('regs', '?')} registers, {v.get('spill', 0)} bytes spilled")
-            for n, v in zip(names, out.values())]
+    return {(n.split("(")[0] if "(" in n else n): {
+        "registers": v.get("regs"), "smem_bytes": v.get("smem", 0),
+        "spill_bytes": v.get("spill", 0)} for n, v in zip(names, out.values())}
+
+
+def ptxas_summary(report: str):
+    """[(kernel, "N registers, M bytes smem, S bytes spilled")] of
+    ptxas_info."""
+    return [(n, f"{v['registers'] or '?'} registers, {v['smem_bytes']} bytes smem, "
+                f"{v['spill_bytes']} bytes spilled") for n, v in ptxas_info(report).items()]
 
 
 def sample_points(tr, n_rays=None):
@@ -2608,6 +2630,13 @@ def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20), sweep=()) -
             "jpeg_entropy": median_ms(lambda: K.jpeg_entropy(dev), windows, n)[0],
             "jpeg_idct": median_ms(lambda: K.jpeg_idct(coef, dev), windows, n)[0],
             "jpeg_color": median_ms(lambda: K.jpeg_color(planes, dev), windows, n)[0]}
+        # the sample-reconstruction kernels' own device time (profiler
+        # kernel events): a CUDA-event window of a few calls also holds the
+        # host's time to launch the first, which these short kernels do not
+        # hide
+        case["device_ms"] = {
+            "jpeg_idct": device_profile(lambda: K.jpeg_idct(coef, dev))[0],
+            "jpeg_color": device_profile(lambda: K.jpeg_color(planes, dev))[0]}
         if work["jpeg_entropy"]:
             case["entropy_split"] = entropy_split(dev)
         if host.rounds:
@@ -2638,7 +2667,8 @@ def jpeg_case(label: str, paths, device: str = "cuda", reps=(5, 20), sweep=()) -
         f"{case['rounds']} rounds), {host.n_pixels} pixels, {case['segments']} + "
         f"{case['progressive_segments']} segments, {case['compressed_bytes']} compressed "
         f"bytes: kernels = "
-        f"plain versions bit for bit; kernel ms {case.get('ms')}, split "
+        f"plain versions bit for bit; kernel ms {case.get('ms')}, device ms "
+        f"{case.get('device_ms')}, split "
         f"{case.get('entropy_split')}, per round {case.get('ms_per_round')}, subsequence "
         f"sweep {case.get('subseq_sweep_ms')}, bound ms {case['bound_ms']}, plain CPU ms "
         f"{case['plain_cpu_ms']}")
@@ -2649,7 +2679,8 @@ def jpeg_damaged_case(label: str, paths, device: str = "cuda",
                       lengths=(64, None)) -> dict:
     """14a: damaged files (testing.damaged_jpegs) through both entropy
     kernels at each subsequence length (None: the default) against their
-    plain versions: status words and blocks bit for bit."""
+    plain versions: status words and blocks bit for bit; the plain
+    versions' blocks through the IDCT and colour kernels (jpeg_sample_case)."""
     from rodynrf_tpu_torch.data import jpeg as J
     from rodynrf_tpu_torch.ops import jpeg as K
 
@@ -2678,7 +2709,71 @@ def jpeg_damaged_case(label: str, paths, device: str = "cuda",
     log(f"[14a] {label}: {len(paths)} damaged frames, {case['segments']} + "
         f"{case['progressive_segments']} segments, status words {codes}: kernels = plain "
         f"versions bit for bit at subsequences of {case['subseq_bits']} bits")
+    case["sample"] = jpeg_sample_case(f"{label}: their blocks", host, coef_p, device)
     return case
+
+
+def jpeg_sample_case(label: str, host, coef, device: str = "cuda") -> dict:
+    """14a: the IDCT and colour kernels on given blocks (`coef`, int16 on
+    the host) of a batch against idct_plain and color_plain: planes and
+    pixels bit for bit; the IDCT's columns by route (32 or 64 bits, from
+    idct_int32_model, which routes as the kernel does)."""
+    from rodynrf_tpu_torch.data import jpeg as J
+    from rodynrf_tpu_torch.ops import jpeg as K
+
+    planes_p = J.idct_plain(coef, host)
+    rgb_p = J.color_plain(planes_p, host)
+    _, info = J.idct_int32_model(coef, host)
+    dev = host.to(device)
+    planes = K.jpeg_idct(coef.to(device), dev)
+    rgb = K.jpeg_color(planes, dev)
+    for name, a, b in (("planes", planes, planes_p), ("pixels", rgb, rgb_p)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"[14a] {label}: the kernels' {name} differ from the plain "
+                                 f"versions'")
+    case = {"case": label, "frames": len(host.frames), "blocks": host.n_blocks,
+            "columns32": info["columns32"], "columns64": info["columns64"], "max_abs_err": 0}
+    log(f"[14a] {label}: {case['blocks']} blocks, IDCT columns {info['columns32']} in 32 bits "
+        f"and {info['columns64']} in 64: jpeg_idct, jpeg_color = plain versions bit for bit")
+    return case
+
+
+def decode_split(paths, device: str = "cuda") -> dict:
+    """ms of decode_jpegs' parts for one batch (host clocks around parts
+    that each end in a synchronise): read_jpeg (the parse), pack, the
+    batch's copies to the card, each kernel's wrapper, check_status of both
+    status words, and the whole; the pixels equal decode_jpegs' bit for
+    bit."""
+    from rodynrf_tpu_torch.data import jpeg as J
+    from rodynrf_tpu_torch.ops import jpeg as K
+
+    ms = {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    t_all = time.perf_counter()
+    frames = part("read_jpeg", lambda: [J.read_jpeg(str(p)) for p in paths])
+    host = part("pack", lambda: J.pack(frames))
+    dev = part("to_device", lambda: host.to(device))
+    coef, status = part("jpeg_entropy", lambda: K.jpeg_entropy(dev))
+    pstatus = part("jpeg_progressive", lambda: K.jpeg_progressive(coef, dev))
+    planes = part("jpeg_idct", lambda: K.jpeg_idct(coef, dev))
+    rgb = part("jpeg_color", lambda: K.jpeg_color(planes, dev))
+    part("check_status", lambda: (J.check_status(status, host),
+                                  J.check_status(pstatus, host, progressive=True)))
+    ms["total"] = 1e3 * (time.perf_counter() - t_all)
+    for f_i, (f, img) in enumerate(zip(host.frames, J.decode_jpegs([str(p) for p in paths],
+                                                                   device))):
+        o = int(host.frame_pix0[f_i]) * 3
+        if not torch.equal(rgb[o:o + f.H * f.W * 3].view(f.H, f.W, 3), img):
+            raise AssertionError(f"decode_split: frame {f_i} differs from decode_jpegs'")
+    return ms
 
 
 def davis_step_path(tr, path: str, smi: str, load_launches=None):
@@ -2740,7 +2835,8 @@ def drive_davis(smi: str, device: str = "cuda"):
     from rodynrf_tpu_torch.preprocess import generate_depth
     from rodynrf_tpu_torch.preprocess import main as preprocess
     from rodynrf_tpu_torch.preprocess.dpt import DPTConfig
-    from rodynrf_tpu_torch.testing import damaged_jpegs, write_jpeg, write_video_scene
+    from rodynrf_tpu_torch.testing import (damaged_jpegs, edge_jpegs, extreme_idct_blocks,
+                                           write_jpeg, write_video_scene)
     from rodynrf_tpu_torch.train import Trainer, config_parser
 
     t_phase = time.time()
@@ -2791,6 +2887,17 @@ def drive_davis(smi: str, device: str = "cuda"):
             "damaged fixtures and frames", damaged_jpegs(
                 [*every, frames[0], rst, prog_frames[0], rst_prog], str(damaged), seed=14),
             device)]
+        # the IDCT's two routes on seeded extreme blocks, and frames that
+        # stress the IDCT's runs and the colour pass's tiles at their edges
+        fixture_batch = J.pack([J.read_jpeg(str(p)) for p in every])
+        coef_x, batch_x = extreme_idct_blocks(fixture_batch, seed=14)
+        damaged_cases.append(jpeg_sample_case("extreme blocks (fixtures' geometry)", batch_x,
+                                              coef_x, device))
+        (root / "edge").mkdir()
+        cases.append(jpeg_case("edge frames", edge_jpegs(str(root / "edge"), seed=14), device))
+        ptxas = {k: v for name in ("jpeg_idct",) if name in BUILD_REPORTS
+                 for k, v in ptxas_info(BUILD_REPORTS[name]).items()}
+        log(f"[14a] nvcc -Xptxas -v, csrc/jpeg_idct.cu: {ptxas or 'not compiled by this run'}")
         # decode_jpegs on the two batches (host parse + copy + kernels +
         # status), and the kernels on the restart batch (the frames batch's
         # are its 14a case)
@@ -2808,10 +2915,13 @@ def drive_davis(smi: str, device: str = "cuda"):
                                 "progressive_segments": int(host.pseg.shape[0]),
                                 "rounds": len(host.rounds), "decode_jpegs_s": batch_s,
                                 "decode_jpegs_ms_per_frame": 1e3 * batch_s / n}
+            if key != "restart":
+                rec["split_ms"] = decode_split(paths, device)
+                log(f"[14a] decode_jpegs by part, {n} frames ({key}), ms: {rec['split_ms']}")
             if key == "frames":
-                rec["kernel_ms"] = cases[1].get("ms")
+                rec["kernel_ms"], rec["device_ms"] = cases[1].get("ms"), cases[1].get("device_ms")
             elif key == "progressive":
-                rec["kernel_ms"] = cases[4].get("ms")
+                rec["kernel_ms"], rec["device_ms"] = cases[4].get("ms"), cases[4].get("device_ms")
             elif device == "cuda":
                 dev = host.to(device)
                 coef, _ = K.jpeg_entropy(dev)
@@ -2820,13 +2930,16 @@ def drive_davis(smi: str, device: str = "cuda"):
                     "jpeg_entropy": median_ms(lambda: K.jpeg_entropy(dev), *slow)[0],
                     "jpeg_idct": median_ms(lambda: K.jpeg_idct(coef, dev), *slow)[0],
                     "jpeg_color": median_ms(lambda: K.jpeg_color(planes, dev), *slow)[0]}
+                rec["device_ms"] = {
+                    "jpeg_idct": device_profile(lambda: K.jpeg_idct(coef, dev))[0],
+                    "jpeg_color": device_profile(lambda: K.jpeg_color(planes, dev))[0]}
                 del coef, planes, dev
             if rec.get("kernel_ms"):
                 rec["kernel_ms_per_frame"] = {k: v / n for k, v in rec["kernel_ms"].items()}
             log(f"[14a] {n} frames as one batch ({key}: {rec['segments']} + "
                 f"{rec['progressive_segments']} progressive segments): "
                 f"decode_jpegs {batch_s * 1e3:.1f} ms (host parse + copy + kernels + status), "
-                f"kernels {rec.get('kernel_ms')}")
+                f"kernels {rec.get('kernel_ms')}, device ms {rec.get('device_ms')}")
 
         # 14b. preprocessing on the card, every frame read through the kernels
         ckpt = root / "ckpt"
@@ -2988,6 +3101,7 @@ def drive_davis(smi: str, device: str = "cuda"):
                         "psnrs": prep["psnrs"], "launches": plaunches,
                         "render_only_s": prender_s, "render_only_psnrs_equal": True},
         "write_s": write_s, "jpeg_cases": cases, "jpeg_damaged": damaged_cases,
+        "ptxas": ptxas,
         "jpeg_batch": batch, "preprocess": pre,
         "cli": {"main_s": cli_s, "loader_s": rep["loader_s"], "train_s": rep["train_s"],
                 "eval_s": rep["eval_s"], "losses": rep["losses"], "psnrs": rep["psnrs"],
@@ -3115,6 +3229,7 @@ def main() -> int:
     # 2. build
     t0 = time.time()
     reports = cuda_build.build(KERNELS + JPEG_SOURCES)
+    BUILD_REPORTS.update(reports)
     log(f"[build] {time.time() - t0:.1f} s (compiled: {sorted(reports) or 'none, cached'})")
     for name, rep in reports.items():
         for fn, info in ptxas_summary(rep):
@@ -3272,6 +3387,10 @@ def main() -> int:
                                  .get(name, 0) for r in records},
             "max_abs_err": max(c["max_abs_err"] for c in davis["jpeg_cases"]),
             "ms": frame_case["ms"][name], "ms_per_frame": frame_case["ms_per_frame"][name],
+            # the kernel's own device time (profiler), for the two kernels
+            # whose time a few CUDA-event-timed calls do not separate from
+            # the host's launch
+            "device_ms": (frame_case.get("device_ms") or {}).get(name),
             "plain_ms": frame_case["plain_cpu_ms"][name],
             "plain_device": "cpu", "bound_ms": frame_case["bound_ms"][name],
             "bound_by": "bytes", "library_ms": None, "case": frame_case["case"],
@@ -3282,12 +3401,22 @@ def main() -> int:
             "subseq_sweep_ms": {b: v[name] for b, v in frame_case.get(
                 "subseq_sweep_ms", {}).items()} if name in ("jpeg_entropy", "jpeg_progressive")
             else None,
-            "cases": [{k: c.get(k) for k in ("case", "frames", "segments", "rounds", "ms",
-                                             "plain_cpu_ms", "bound_ms")}
-                      for c in davis["jpeg_cases"]],
+            # every 14a batch this kernel ran on (the 480p progressive batch
+            # included): its ms, bound and plain CPU ms there
+            "cases": [{"case": c["case"], "frames": c["frames"], "segments": c["segments"],
+                       "rounds": c["rounds"], "ms": (c.get("ms") or {}).get(name),
+                       "device_ms": (c.get("device_ms") or {}).get(name),
+                       "plain_cpu_ms": c["plain_cpu_ms"][name], "bound_ms": c["bound_ms"][name]}
+                      for c in davis["jpeg_cases"] if name in c["bound_ms"]],
+            # nvcc -Xptxas -v: registers, shared memory, spills
+            "ptxas": {k: v for k, v in davis["ptxas"].items()
+                      if name in ("jpeg_idct", "jpeg_color")
+                      and name.split("_")[1] + "_kernel" in k} or None,
             "damaged": davis["jpeg_damaged"] if name in ("jpeg_entropy", "jpeg_progressive")
             else None,
             "batch_ms": {k: b["kernel_ms"].get(name) for k, b in davis["jpeg_batch"].items()},
+            "batch_device_ms": {k: (b.get("device_ms") or {}).get(name)
+                                for k, b in davis["jpeg_batch"].items()},
         })
     for k in kernels:
         if k["launches"] == 0:

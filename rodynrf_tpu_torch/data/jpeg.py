@@ -75,6 +75,13 @@ SUBSEQ_BITS = 1024
 DATA_PAD = 16
 # how a scan's segments are decoded (pack sorts each round's segments so)
 SCAN_FIRST, SCAN_DC_REFINE, SCAN_AC_REFINE = 0, 1, 2
+# csrc/jpeg_idct.cu: blocks a CTA of the IDCT (a run along one block row of
+# one plane), output rows × columns a CTA of the colour pass, and the largest
+# |coef·q| of a column whose islow pass 1 runs in 32 bits (islow_pass1_l1)
+IDCT_RUN = 32
+COLOR_TILE = (16, 256)
+IDCT32_MAX = 35081
+IDCT_RUN_WORDS, COLOR_TILE_WORDS = 8, 32  # int32 words of a row of their tables
 
 # status word of one entropy-coded segment
 STATUS_OK, STATUS_BAD_CODE, STATUS_BAD_AC, STATUS_SHORT, STATUS_BAD_BAND = 0, 1, 2, 3, 4
@@ -598,6 +605,11 @@ class JpegBatch:
     quant int32 [P, 64];
     frame int32 [F, 5]: H, W, colour, components, first plane;
     frame_pix0 int64 [F + 1]: first output pixel of each frame;
+    idct_runs int32 [R, IDCT_RUN_WORDS]: the IDCT's work, one row a CTA: a
+          run of at most IDCT_RUN blocks along a block row (`idct_runs`);
+    color_tiles int32 [T, COLOR_TILE_WORDS]: the colour pass's work, one row
+          a CTA: a COLOR_TILE tile of a frame and the frame's and planes'
+          words it reads (`color_tiles`);
     sub0  int32 [S + 1], psub0 int32 [Sp + 1]: the subsequence tables of
           the parallel Huffman decode at `subseq_bits` bits a subsequence:
           segment s is cut into subsequences sub0[s] .. sub0[s + 1] - 1
@@ -619,6 +631,8 @@ class JpegBatch:
     quant: torch.Tensor
     frame: torch.Tensor
     frame_pix0: torch.Tensor
+    idct_runs: torch.Tensor
+    color_tiles: torch.Tensor
     sub0: torch.Tensor
     psub0: torch.Tensor
     n_blocks: int
@@ -634,7 +648,8 @@ class JpegBatch:
     subseq_bits: int = 0
 
     _TENSORS = ("data", "seg", "scan", "huff", "pseg", "pscan", "phuff", "plane_block0",
-                "plane", "plane_pix0", "quant", "frame", "frame_pix0", "sub0", "psub0")
+                "plane", "plane_pix0", "quant", "frame", "frame_pix0", "idct_runs", "color_tiles",
+                "sub0", "psub0")
     _HOST = ("n_blocks", "n_plane_bytes", "n_pixels", "frames", "rounds", "round_kinds",
              "scans", "seg_nbits", "pseg_nbits", "pseg_first", "subseq_bits")
 
@@ -725,7 +740,7 @@ def pack(frames: Sequence[JpegFrame]) -> JpegBatch:
             pkind.append(kind)
             data.append(s)
             nbytes += len(s)
-    if nbytes >= 2 ** 31:  # the segment offsets are int32
+    if nbytes >= 2 ** 31 or nblocks >= 2 ** 31:  # segment offsets, block indices are int32
         raise ValueError("batch too large: split the frames into several batches")
     if max([len(s) for s in data] or [0]) >= 2 ** 28:  # bit positions are int32
         raise ValueError("an entropy-coded segment of 256 MiB or more is not supported")
@@ -751,11 +766,61 @@ def pack(frames: Sequence[JpegFrame]) -> JpegBatch:
         quant=torch.from_numpy(np.stack(quant).astype(np.int32)),
         frame=torch.tensor(fr, dtype=torch.int32).reshape(-1, 5),
         frame_pix0=torch.tensor(pix0, dtype=torch.int64),
+        idct_runs=torch.from_numpy(idct_runs(planes, plane_block0, plane_pix0)),
+        color_tiles=torch.from_numpy(color_tiles(fr, pix0, planes, plane_pix0)),
         sub0=torch.from_numpy(subseq_table(seg_nbits, None, SUBSEQ_BITS)),
         psub0=torch.from_numpy(subseq_table(pseg_nbits, pseg_first, SUBSEQ_BITS)),
         n_blocks=nblocks, n_plane_bytes=nplane, n_pixels=npix, frames=list(frames),
         rounds=rounds, round_kinds=round_kinds, scans=scans, seg_nbits=seg_nbits,
         pseg_nbits=pseg_nbits, pseg_first=pseg_first, subseq_bits=SUBSEQ_BITS)
+
+
+def _int64_words(x) -> np.ndarray:
+    """int32 [n, 2]: int64 values as their low and high words."""
+    return np.ascontiguousarray(np.asarray(x, np.int64)).view(np.int32).reshape(-1, 2)
+
+
+def idct_runs(planes, plane_block0, plane_pix0) -> np.ndarray:
+    """int32 [R, IDCT_RUN_WORDS]: every plane's blocks as runs of at most
+    IDCT_RUN along its block rows, plane after plane, one CTA of the IDCT
+    kernel each: plane, block row, first block in the row, blocks, blocks
+    per row, the run's first block in the batch, the byte of its top-left
+    sample (int64, low and high words). `planes`: pack's plane rows."""
+    out = []
+    for p, (bw, bh, *_rest) in enumerate(planes):
+        bx = np.arange(0, bw, IDCT_RUN)
+        by, bx = np.repeat(np.arange(bh), len(bx)), np.tile(bx, bh)
+        out.append(np.concatenate([np.stack([
+            np.full_like(bx, p), by, bx, np.minimum(IDCT_RUN, bw - bx), np.full_like(bx, bw),
+            plane_block0[p] + by * bw + bx], 1), _int64_words(
+                plane_pix0[p] + 64 * by * bw + 8 * bx)], 1))
+    return (np.concatenate(out).astype(np.int32) if out
+            else np.zeros((0, IDCT_RUN_WORDS), np.int32))
+
+
+def color_tiles(frames, pix0, planes, plane_pix0) -> np.ndarray:
+    """int32 [T, COLOR_TILE_WORDS]: every frame's output as COLOR_TILE tiles,
+    row-major, frame after frame, one CTA of the colour kernel each, with
+    what the CTA reads: frame, first row, first column, components | colour
+    << 8, H, W, the frame's first output byte (int64, low and high words);
+    then per component (3, zeros past the frame's) its plane's first sample
+    (int64, two words), blocks per row, cw, ch, rh, rv, fancy. `frames`,
+    `pix0`, `planes`: pack's frame rows, first pixels and plane rows."""
+    th, tw = COLOR_TILE
+    out = []
+    for f, (H, W, color, nc, p0) in enumerate(frames):
+        y0, x0 = np.meshgrid(np.arange(0, H, th), np.arange(0, W, tw), indexing="ij")
+        row = np.zeros(COLOR_TILE_WORDS, np.int32)
+        row[3:6] = [nc | color << 8, H, W]
+        row[6:8] = _int64_words([3 * pix0[f]])[0]
+        for c in range(nc):
+            bw, _, cw, ch, rh, rv, fancy, _ = planes[p0 + c]
+            row[8 + 8 * c:16 + 8 * c] = [*_int64_words([plane_pix0[p0 + c]])[0], bw, cw, ch,
+                                         rh, rv, fancy]
+        rows = np.tile(row, (y0.size, 1))
+        rows[:, 0], rows[:, 1], rows[:, 2] = f, y0.ravel(), x0.ravel()
+        out.append(rows)
+    return (np.concatenate(out) if out else np.zeros((0, COLOR_TILE_WORDS), np.int32))
 
 
 def _overlap(a: Scan, b: Scan) -> bool:
@@ -1475,6 +1540,152 @@ def color_plain(planes: torch.Tensor, batch: JpegBatch) -> torch.Tensor:
         o = int(batch.frame_pix0[f_i]) * 3
         out[o:o + H * W * 3] = rgb.reshape(-1).to(torch.uint8)
     return out
+
+
+# ---------------------------------------------------------------------------
+# models of the sample-reconstruction kernels' designs (csrc/jpeg_idct.cu)
+# ---------------------------------------------------------------------------
+
+def _islow_sums(x: np.ndarray) -> np.ndarray:
+    """islow's 1-D pass along the last axis of x [..., 8] before its DESCALE,
+    in x's dtype (uint32: modulo 2^32, as the kernel's 32-bit route)."""
+    def k(c):
+        return x.dtype.type(c % 2 ** 32 if x.dtype == np.uint32 else c)
+
+    F = {n: k(c) for n, c in _FIX.items()}
+    neg = {n: k(-c) for n, c in _FIX.items()}
+    z2, z3 = x[..., 2], x[..., 6]
+    z1 = (z2 + z3) * F["c0_541196100"]
+    tmp2 = z1 + z3 * neg["c1_847759065"]
+    tmp3 = z1 + z2 * F["c0_765366865"]
+    tmp0 = (x[..., 0] + x[..., 4]) * k(8192)
+    tmp1 = (x[..., 0] - x[..., 4]) * k(8192)
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = x[..., 7], x[..., 5], x[..., 3], x[..., 1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * F["c1_175875602"]
+    t0 = t0 * F["c0_298631336"] + z1 * neg["c0_899976223"]
+    t3 = t3 * F["c1_501321110"] + z1 * neg["c0_899976223"]
+    t1 = t1 * F["c2_053119869"] + z2 * neg["c2_562915447"]
+    t2 = t2 * F["c3_072711026"] + z2 * neg["c2_562915447"]
+    z3 = z3 * neg["c1_961570560"] + z5
+    z4 = z4 * neg["c0_390180644"] + z5
+    t0, t1, t2, t3 = t0 + z3, t1 + z4, t2 + z3, t3 + z4
+    return np.stack([tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                     tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3], -1)
+
+
+def islow_pass1_l1() -> int:
+    """The largest L1 norm of a row of islow pass 1's integer matrix (its
+    outputs before the DESCALE, as linear forms of a column's 8 products):
+    61214, so IDCT32_MAX = (2**31 - 1 - 1024) // 61214 is the largest
+    max |coef·q| of a column whose pass 1 cannot leave int32."""
+    a = _islow_sums(np.eye(8, dtype=np.int64))  # [input, output]
+    return int(np.abs(a).sum(0).max())
+
+
+def idct_int32_model(coef: torch.Tensor, batch: JpegBatch):
+    """idct_kernel's design in numpy: the blocks of each run of
+    `batch.idct_runs`, found from its row alone, dequantised; pass 1 down each column in 32-bit
+    (uint32, wrapping) arithmetic when the column's largest |coef·q| is at
+    most IDCT32_MAX, else in int64; pass 2 along the rows in 32 bits; each
+    run's rows placed along its plane's rows. With an overflow check: every
+    column the 32-bit route takes must keep its true pass-1 sums + 1024
+    inside int32 (`overflow32` counts those that do not), and pass 2's
+    32-bit digits must equal int64's (`wrong_pass2`). Returns (uint8
+    [n_plane_bytes], info: `columns32`, `columns64`, `overflow32`,
+    `wrong32` (columns whose 32-bit pass 1 would differ from int64's,
+    whatever their route), `wrong_pass2`)."""
+    runs = batch.idct_runs.numpy()
+    n = runs[:, 3].astype(np.int64)
+    run_of = np.repeat(np.arange(len(runs)), n)
+    i = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    p, bw = runs[run_of, 0], runs[run_of, 4].astype(np.int64)
+    blk = runs[run_of, 5] + i  # the run's first block, then along the row
+    first = np.ascontiguousarray(runs[:, 6:8]).view(np.int64)[:, 0]  # its top-left sample
+    x = coef.numpy()[blk].astype(np.int32) * batch.quant.numpy()[p]  # |x| <= 32768·255
+    cols = x.reshape(-1, 8, 8).transpose(0, 2, 1)  # [block, column, row]
+    route32 = np.abs(cols).max(-1) <= IDCT32_MAX
+    s32 = _islow_sums(cols.astype(np.uint32)) + np.uint32(1024)
+    s64 = _islow_sums(cols.astype(np.int64)) + 1024
+    y32 = s32.view(np.int32) >> 11
+    y64 = (s64 >> 11).astype(np.int32)  # the workspace holds ints
+    inside = ((s64 >= -2 ** 31) & (s64 < 2 ** 31)).all(-1)
+    ws = np.where(route32[..., None], y32, y64).transpose(0, 2, 1)  # [block, row, column]
+    d = (_islow_sums(ws.astype(np.uint32)) + np.uint32(1 << 17)).view(np.int32) >> 18 & 1023
+    d64 = (_islow_sums(ws.astype(np.int64)) + (1 << 17)) >> 18 & 1023
+    v = np.clip(((d ^ 512) - 512) + 128, 0, 255).astype(np.uint8)
+    stride = 8 * bw
+    at = (first[run_of] + 8 * i)[:, None, None] \
+        + np.arange(8)[None, :, None] * stride[:, None, None] + np.arange(8)
+    out = np.zeros(batch.n_plane_bytes, np.uint8)
+    out[at] = v
+    info = {"columns32": int(route32.sum()), "columns64": int((~route32).sum()),
+            "overflow32": int((route32 & ~inside).sum()),
+            "wrong32": int((y32 != y64).any(-1).sum()), "wrong_pass2": int((d != d64).sum())}
+    return torch.from_numpy(out), info
+
+
+def _tile_upsample(win: np.ndarray, rh: int, rv: int, fancy: int) -> np.ndarray:
+    """One component's upsampled samples over a whole COLOR_TILE, int32
+    [rows, columns], from its staged window `win` (the samples under the
+    tile and a one-sample halo, replicated at the component's edges: window
+    row 1 + k is the tile's k-th sample row), as color_kernel's threads make
+    them: under h2v2 the column sums 3·nearer + further row of each staged
+    column, then the horizontal triangle filter."""
+    th, tw = COLOR_TILE
+    oy, ox = np.arange(th)[:, None], np.arange(tw)[None, :]
+    odd_y, odd_x = oy & 1, ox & 1
+    if rh == 1 and rv == 1:
+        return win[1 + oy, 1 + ox]
+    if rh == 2 and not fancy:  # box
+        return win[1 + (oy >> (rv - 1)), 1 + (ox >> 1)]
+    if rh == 1:  # h1v2: (3·nearer + further + 1 or 2) >> 2
+        r = 1 + (oy >> 1)
+        return (3 * win[r, 1 + ox] + win[r + 2 * odd_y - 1, 1 + ox] + 1 + odd_y) >> 2
+    j = 1 + (ox >> 1)
+    if rv == 1:  # h2v1: (3·nearer + further + 1 or 2) >> 2
+        return (3 * win[1 + oy, j] + win[1 + oy, j + 2 * odd_x - 1] + 1 + odd_x) >> 2
+    r = 1 + (np.arange(th) >> 1)
+    C = 3 * win[r] + win[r + 2 * (np.arange(th) & 1) - 1]  # [rows, staged columns]
+    return (3 * C[oy, j] + C[oy, j + 2 * odd_x - 1] + 8 - odd_x) >> 4
+
+
+def color_tiled_model(planes: torch.Tensor, batch: JpegBatch) -> torch.Tensor:
+    """color_kernel's design in numpy: each tile of `batch.color_tiles`, read
+    from its row alone (the frame's and planes' words in it), from its
+    components' halo-staged windows (`_tile_upsample`), converted and
+    written where the tile lies in its frame. Raises if a pixel is left
+    unwritten. Returns uint8 [n_pixels · 3]."""
+    th0, tw0 = COLOR_TILE
+    pl = planes.numpy()
+    out = np.full(batch.n_pixels * 3, -1, np.int16)
+    for row in batch.color_tiles.numpy():  # all the CTA reads, as the kernel does
+        y0, x0, nc, color, H, W = row[1], row[2], row[3] & 255, row[3] >> 8, row[4], row[5]
+        o0 = int(row[6:8].view(np.int64)[0])
+        th, tw = min(th0, H - y0), min(tw0, W - x0)
+        chans = []
+        for c in range(nc):
+            base = int(row[8 + 8 * c:10 + 8 * c].view(np.int64)[0])
+            bw, cw, ch, rh, rv, fancy = row[10 + 8 * c:16 + 8 * c]
+            stride = 8 * int(bw)
+            r0, c0 = (y0 >> (rv - 1)) - 1, (x0 >> (rh - 1)) - 1
+            rows = np.clip(np.arange(r0, r0 + th0 // rv + 2), 0, ch - 1)
+            cols = np.clip(np.arange(c0, c0 + tw0 // rh + 2), 0, cw - 1)
+            win = pl[base + rows[:, None] * stride + cols].astype(np.int32)
+            up = _tile_upsample(win, rh, rv, fancy)
+            chans.append(torch.from_numpy(np.ascontiguousarray(up[:th, :tw])))
+        if color == COLOR_GRAY:
+            rgb = chans[0][..., None].expand(th, tw, 3)
+        elif color == COLOR_YCC:
+            rgb = ycc_to_rgb(*chans)
+        else:
+            rgb = torch.stack(chans, -1)
+        at = o0 + 3 * ((y0 + np.arange(th))[:, None] * W + x0) + np.arange(3 * tw)
+        out[at] = rgb.reshape(th, 3 * tw).numpy()
+    if (out < 0).any():
+        raise AssertionError(f"color_tiles left {int((out < 0).sum())} output bytes unwritten")
+    return torch.from_numpy(out.astype(np.uint8))
 
 
 def check_status(status: torch.Tensor, batch: JpegBatch, progressive: bool = False) -> None:

@@ -13,9 +13,11 @@ Four wrappers decode a batch of frames (`data/jpeg.JpegBatch`):
   launches, its DC refinements by one, its AC refinements by one (one warp
   a segment); a status word per segment;
 - `jpeg_idct`: csrc/jpeg_idct.cu `idct_kernel`, dequantisation + islow IDCT
-  into uint8 component planes;
+  into uint8 component planes, one CTA a run of blocks along a block row
+  (`JpegBatch.idct_runs`), in 32 bits where that is exact;
 - `jpeg_color`: csrc/jpeg_idct.cu `color_kernel`, fancy upsampling +
-  YCbCr -> RGB into the frames' [H, W, 3] uint8 pixels.
+  YCbCr -> RGB into the frames' [H, W, 3] uint8 pixels, one CTA an output
+  tile (`JpegBatch.color_tiles`).
 
 None has a TPU counterpart (the JAX package decodes through PIL on the
 host). A batch on the CPU takes the plain versions of data/jpeg.py; on the
@@ -50,6 +52,14 @@ def _on_card(batch: JpegBatch, name: str) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     return True
+
+
+def _aligned(t: torch.Tensor, name: str) -> int:
+    """The pointer of a contiguous tensor that a kernel reads or writes in
+    16-byte words; raises on one that is not 16-byte aligned."""
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    return t.data_ptr()
 
 
 def _check(err: int, name: str) -> None:
@@ -171,7 +181,9 @@ jpeg_progressive.last_ctl = None  # per round, as jpeg_entropy.last_ctl
 
 
 def jpeg_idct(coef: torch.Tensor, batch: JpegBatch) -> torch.Tensor:
-    """uint8 [n_plane_bytes]: every component plane's samples."""
+    """uint8 [n_plane_bytes]: every component plane's samples. On the card
+    `coef` is read in 16-byte words: contiguous and 16-byte aligned, as
+    jpeg_entropy returns it."""
     if coef.shape != (batch.n_blocks, 64) or coef.dtype != torch.int16:
         raise ValueError(f"coef must be int16 [{batch.n_blocks}, 64], got {coef.dtype} "
                          f"{tuple(coef.shape)}")
@@ -180,9 +192,8 @@ def jpeg_idct(coef: torch.Tensor, batch: JpegBatch) -> torch.Tensor:
     dev = batch.data.device
     out = torch.empty(batch.n_plane_bytes, dtype=torch.uint8, device=dev)
     _check(_lib("jpeg_idct").rodynrf_jpeg_idct(
-        coef.contiguous().data_ptr(), batch.n_blocks, batch.plane_block0.data_ptr(),
-        batch.plane.shape[0], batch.plane.data_ptr(), batch.plane_pix0.data_ptr(),
-        batch.quant.data_ptr(), out.data_ptr(), current_stream(dev)), "jpeg_idct")
+        _aligned(coef, "coef"), batch.idct_runs.shape[0], batch.idct_runs.data_ptr(),
+        _aligned(batch.quant, "quant"), out.data_ptr(), current_stream(dev)), "jpeg_idct")
     jpeg_idct.launches += 1
     return out
 
@@ -191,7 +202,9 @@ jpeg_idct.launches = 0
 
 
 def jpeg_color(planes: torch.Tensor, batch: JpegBatch) -> torch.Tensor:
-    """uint8 [n_pixels · 3]: the frames' RGB pixels back to back."""
+    """uint8 [n_pixels · 3]: the frames' RGB pixels back to back. On the card
+    `planes` is read in 16-byte words: contiguous and 16-byte aligned, as
+    jpeg_idct returns it."""
     if planes.shape != (batch.n_plane_bytes,) or planes.dtype != torch.uint8:
         raise ValueError(f"planes must be uint8 [{batch.n_plane_bytes}], got {planes.dtype} "
                          f"{tuple(planes.shape)}")
@@ -200,9 +213,8 @@ def jpeg_color(planes: torch.Tensor, batch: JpegBatch) -> torch.Tensor:
     dev = batch.data.device
     out = torch.empty(batch.n_pixels * 3, dtype=torch.uint8, device=dev)
     _check(_lib("jpeg_idct").rodynrf_jpeg_color(
-        planes.contiguous().data_ptr(), batch.n_pixels, batch.frame_pix0.data_ptr(),
-        batch.frame.shape[0], batch.frame.data_ptr(), batch.plane.data_ptr(),
-        batch.plane_pix0.data_ptr(), out.data_ptr(), current_stream(dev)), "jpeg_color")
+        _aligned(planes, "planes"), batch.color_tiles.shape[0], batch.color_tiles.data_ptr(),
+        out.data_ptr(), current_stream(dev)), "jpeg_color")
     jpeg_color.launches += 1
     return out
 
@@ -215,7 +227,7 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = cuda_build.load(name)
     if getattr(lib, "bound", False):
         return lib
-    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    P, I = ctypes.c_void_p, ctypes.c_int
     if name == "jpeg_entropy":
         lib.rodynrf_jpeg_entropy_sync.argtypes = [P] * 8 + [I, I, I, P, P, P]
         lib.rodynrf_jpeg_entropy_scan.argtypes = [P] * 8 + [I, P, P, P, P, P]
@@ -231,9 +243,9 @@ def _lib(name: str) -> ctypes.CDLL:
         for fn in ("sync", "scan", "write", "dc_refine", "ac_refine"):
             getattr(lib, f"rodynrf_jpeg_progressive_{fn}").restype = I
     else:
-        lib.rodynrf_jpeg_idct.argtypes = [P, LL, P, I, P, P, P, P, P]
-        lib.rodynrf_jpeg_idct.restype = I
-        lib.rodynrf_jpeg_color.argtypes = [P, LL, P, I, P, P, P, P, P]
-        lib.rodynrf_jpeg_color.restype = I
+        lib.rodynrf_jpeg_idct.argtypes = [P, I, P, P, P, P]
+        lib.rodynrf_jpeg_color.argtypes = [P, I, P, P, P]
+        for fn in ("idct", "color"):
+            getattr(lib, f"rodynrf_jpeg_{fn}").restype = I
     lib.bound = True
     return lib

@@ -621,3 +621,70 @@ def damaged_jpegs(paths, out_dir: str, seed: int = 0):
                 f.write(bytes(d))
             written.append(out)
     return written
+
+
+# sizes (H, W) that stress csrc/jpeg_idct.cu's tiles and edges, in every
+# subsampling: DAVIS's 480p (chroma 427 wide), a frame narrower and shorter
+# than one colour tile, widths 16k ± 1 at odd heights (one across the
+# tile's 256 columns), and the box filter's 3×4 (chroma 2 samples wide)
+EDGE_SIZES = ((480, 854), (12, 200), (17, 47), (33, 49), (9, 255), (21, 257), (3, 4))
+EDGE_SUBSAMPLINGS = ("420", "422", "444", "440", "gray")
+
+
+def edge_jpegs(out_dir: str, seed: int = 0, sizes=EDGE_SIZES):
+    """write_jpeg files of every size in `sizes` in every subsampling of
+    EDGE_SUBSAMPLINGS (smooth seeded content: gradients and noise), for
+    holding the sample-reconstruction kernels to their plain versions at
+    the frames' edges. Returns the paths written."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for h, w in sizes:
+        yy, xx = np.mgrid[:h, :w]
+        for sub in EDGE_SUBSAMPLINGS:
+            img = np.stack([xx * 255 // max(w - 1, 1), 128 + 60 * np.sin(yy / 7.0 + xx / 11.0),
+                            (xx + 2 * yy) % 256], -1)
+            img = np.clip(img + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(np.uint8)
+            paths.append(os.path.join(out_dir, f"edge_{h}x{w}_{sub}.jpg"))
+            write_jpeg(paths[-1], img[..., 0] if sub == "gray" else img, 85,
+                       "444" if sub == "gray" else sub)
+    return paths
+
+
+def extreme_idct_blocks(batch, seed: int = 0):
+    """(coef int16 [n_blocks, 64], the batch with new quantisers) for holding
+    the IDCT's 32-bit and 64-bit routes to the plain version: seeded blocks
+    of full-range coefficients (±32767, -32768), of valid-range ones and of
+    sparse ones, under quantisers from 1 to 255; and in each plane's first
+    two blocks, column 0 (quantisers 2) at the 32-bit route's edge, its 8
+    products ±35080 and ±35082 (2 · 17540, 2 · 17541) in the signs of islow
+    pass 1's worst row: the first the largest such column under IDCT32_MAX
+    (35081, odd: no int16 coefficient times 2 makes it), routed to 32 bits;
+    the second just past it, whose 32-bit sum would wrap, routed to 64."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from .data.jpeg import _islow_sums
+
+    rng = np.random.default_rng(seed)
+    n = batch.n_blocks
+    kind = rng.integers(0, 3, n)[:, None]
+    full = rng.integers(-32768, 32768, (n, 64))
+    valid = rng.integers(-64, 65, (n, 64))
+    sparse = np.where(rng.random((n, 64)) < 0.1, full, 0)
+    coef = np.where(kind == 0, full, np.where(kind == 1, valid, sparse))
+    quant = rng.integers(1, 256, (batch.plane.shape[0], 64))
+    quant[:, 0::8] = 2
+    a = _islow_sums(np.eye(8, dtype=np.int64))  # [input, output]
+    sign = np.sign(a[:, np.argmax(np.abs(a).sum(0))])
+    for p, b0 in enumerate(batch.plane_block0.tolist()[:-1]):
+        for i, m in enumerate((17540, 17541)):
+            if b0 + i < batch.plane_block0[p + 1]:
+                coef[b0 + i, 0::8] = sign * m
+    return (torch.from_numpy(coef.astype(np.int16)),
+            dataclasses.replace(batch, quant=torch.from_numpy(quant.astype(np.int32))))

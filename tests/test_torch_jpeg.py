@@ -24,12 +24,24 @@ tests/test_torch_jpeg_progressive.py):
   32 bits up (every decoder syncs many times), and on damaged files (the
   corrupt file of the refusal cases, flipped bytes, segments cut short,
   runs of all-ones bits);
+- the models of the sample-reconstruction kernels' designs equal the plain
+  versions bit for bit: `color_tiled_model` (tile by tile from
+  `JpegBatch.color_tiles` and halo-staged windows) on every fixture,
+  progressive ones included, and on a mixed batch of `testing.edge_jpegs`
+  frames (854×480, a frame smaller than a tile, widths 16k ± 1, the 3×4
+  box case; 4:2:0, 4:2:2, 4:4:4, 4:4:0, gray); `idct_int32_model` (32-bit
+  islow where exact, with an overflow check) on the fixtures, the edge
+  frames, seeded extreme blocks (`testing.extreme_idct_blocks`: ±32767
+  under quantisers up to 255) and damaged files' blocks, with its route
+  at the bound derived from islow's matrix: the largest column under it
+  stays in 32 bits, one just past it goes to 64 and would have wrapped;
 - chip_smoke.py phase 14 rehearses on the CPU at a small size.
 The kernels against these plain versions on the card:
 tests/test_torch_kernels.py.
 """
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -43,7 +55,8 @@ from rodynrf_tpu.data.video_dataset import load_davis_scene as jload_davis
 from rodynrf_tpu_torch.data import jpeg as J
 from rodynrf_tpu_torch.data.imageio import image_size, read_frames
 from rodynrf_tpu_torch.data.video_dataset import load_davis_scene
-from rodynrf_tpu_torch.testing import torch_threads, write_jpeg, write_video_scene
+from rodynrf_tpu_torch.testing import (edge_jpegs, extreme_idct_blocks, torch_threads,
+                                       write_jpeg, write_video_scene)
 
 REPO = Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "tests" / "data" / "jpeg"
@@ -280,7 +293,15 @@ def test_chip_smoke_davis_phase_rehearses_on_the_cpu(monkeypatch):
     # fixture (10 baseline + 8 progressive), the progressive scene's frames
     cases = [(c["frames"], c["segments"], c["progressive_frames"], c["rounds"])
              for c in davis["jpeg_cases"]]
-    assert cases[1:] == [(4, 4, 0, 0), (1, 2, 0, 0), (18, 24, 8, 3), (4, 0, 4, 3)]
+    assert cases[1:] == [(4, 4, 0, 0), (1, 2, 0, 0), (18, 24, 8, 3), (4, 0, 4, 3),
+                         (35, 35, 0, 0)]
+    # decode_jpegs by part on the loader's two batches
+    for key in ("frames", "progressive"):
+        split = davis["jpeg_batch"][key]["split_ms"]
+        assert set(split) == {"read_jpeg", "pack", "to_device", "jpeg_entropy",
+                              "jpeg_progressive", "jpeg_idct", "jpeg_color", "check_status",
+                              "total"}
+        assert all(v >= 0 for v in split.values())
 
 
 @pytest.mark.parametrize("subseq_bits", [32, 96, 1024, J.SUBSEQ_BITS],
@@ -323,3 +344,95 @@ def test_decode_models_on_damaged_files(tmp_path):
         assert torch.equal(got_status, status) and torch.equal(got, base)
         got_p, _ = J.progressive_decode_model(got, host, subseq_bits)
         assert torch.equal(got_p, pstatus) and torch.equal(got, coef)
+
+
+def _decoded(paths):
+    """(host batch, blocks, planes) of `paths` by the plain versions."""
+    host = J.pack([J.read_jpeg(p) for p in paths])
+    coef, status = J.entropy_decode_plain(host)
+    pstatus = J.progressive_decode_plain(coef, host)
+    return host, coef, J.idct_plain(coef, host), bool(status.any() or pstatus.any())
+
+
+@pytest.fixture(scope="module")
+def edge_batch(tmp_path_factory):
+    return _decoded(edge_jpegs(str(tmp_path_factory.mktemp("edge")), seed=14))
+
+
+def test_kernel_constants_are_the_sources():
+    """data/jpeg.py's IDCT_RUN, COLOR_TILE and IDCT32_MAX are the #defines of
+    csrc/jpeg_idct.cu, and IDCT32_MAX is the bound derived from islow's
+    pass-1 matrix: the largest max |x| with 61214·max |x| + 1024 < 2^31."""
+    src = (REPO / "rodynrf_tpu_torch" / "csrc" / "jpeg_idct.cu").read_text()
+    defined = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)\n", src)}
+    assert (defined["IDCT_RUN"], defined["COLOR_TH"], defined["COLOR_TW"]) == (
+        J.IDCT_RUN, *J.COLOR_TILE)
+    assert J.islow_pass1_l1() == 61214
+    assert defined["IDCT32_MAX"] == J.IDCT32_MAX == (2 ** 31 - 1 - 1024) // 61214
+    assert 61214 * (J.IDCT32_MAX + 1) + 1024 >= 2 ** 31
+
+
+@pytest.mark.parametrize("case", ["fixtures", "edge frames"])
+def test_color_tiled_model_equals_plain(case, edge_batch):
+    """The colour kernel's design (tiles of COLOR_TILE, each component's
+    window with a one-sample halo replicated at its real edges, the h2v2
+    column sums) equals color_plain bit for bit: the fixtures (baseline and
+    progressive, one batch) and the edge frames (one mixed batch)."""
+    if case == "fixtures":
+        host, _, planes, bad = _decoded(sorted(str(p) for p in FIXTURES.glob("*.jpg")))
+    else:
+        host, _, planes, bad = edge_batch
+        fancy = {(rh, rv, fancy) for _, _, _, _, rh, rv, fancy, _ in host.plane.tolist()}
+        assert {(1, 1, 1), (2, 2, 1), (2, 1, 1), (1, 2, 1), (2, 2, 0), (2, 1, 0)} <= fancy
+    assert not bad
+    n_tiles = sum(-(-H // J.COLOR_TILE[0]) * -(-W // J.COLOR_TILE[1])
+                  for H, W, *_ in host.frame.tolist())
+    assert host.color_tiles.shape == (n_tiles, J.COLOR_TILE_WORDS)
+    assert torch.equal(J.color_tiled_model(planes, host), J.color_plain(planes, host))
+
+
+@pytest.mark.parametrize("case", ["fixtures", "edge frames", "extreme blocks", "damaged files"])
+def test_idct_int32_model_equals_plain(case, edge_batch, tmp_path):
+    """The IDCT kernel's design (runs along block rows, pass 1 in 32 bits
+    for columns under IDCT32_MAX and in 64 above, pass 2 in 32 bits) equals
+    idct_plain bit for bit; no column of the 32-bit route leaves int32, and
+    pass 2's 32-bit digits are int64's."""
+    from rodynrf_tpu_torch.testing import damaged_jpegs
+
+    if case == "edge frames":
+        host, coef, planes, _ = edge_batch
+    else:
+        paths = sorted(str(p) for p in FIXTURES.glob("*.jpg"))
+        if case == "damaged files":
+            paths = damaged_jpegs(paths, str(tmp_path), seed=14)
+        host, coef, planes, bad = _decoded(paths)
+        assert bad == (case == "damaged files")
+        if case == "extreme blocks":
+            coef, host = extreme_idct_blocks(host, seed=14)
+            planes = J.idct_plain(coef, host)
+    got, info = J.idct_int32_model(coef, host)
+    assert torch.equal(got, planes)
+    assert info["overflow32"] == 0 and info["wrong_pass2"] == 0
+    assert info["columns32"] + info["columns64"] == 8 * host.n_blocks
+    if case == "extreme blocks":  # both routes taken, and the 64-bit one needed
+        assert info["columns32"] > 0 and info["wrong32"] > 0
+    elif case != "damaged files":  # valid 8-bit data stays far below the bound
+        assert info["columns64"] == 0
+
+
+def test_idct_int32_route_at_the_bound():
+    """Columns at the route's edge alone (every other coefficient 0): the
+    largest product under IDCT32_MAX in the signs of pass 1's worst row
+    stays in 32 bits and is exact; one just past it goes to 64 bits, where
+    the 32-bit sums would have wrapped; the planes equal idct_plain's."""
+    host, *_ = _decoded([str(FIXTURES / BASELINE[0])])
+    coef, host = extreme_idct_blocks(host, seed=1)
+    edge = torch.zeros_like(coef)
+    firsts = [b for b, b1 in zip(host.plane_block0.tolist(), host.plane_block0.tolist()[1:])
+              if b1 - b >= 2]
+    for b in firsts:
+        edge[b:b + 2, 0::8] = coef[b:b + 2, 0::8]
+    assert {int(edge[b, 0::8].abs().max()) for b in firsts} == {17540}
+    got, info = J.idct_int32_model(edge, host)
+    assert torch.equal(got, J.idct_plain(edge, host))
+    assert info["columns64"] == info["wrong32"] == len(firsts) and info["overflow32"] == 0

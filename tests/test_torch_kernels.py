@@ -1,7 +1,9 @@
 """The port's CUDA kernels (coalesce, segment sum in its upd and factored
 forms, the bit-limited radix sort, the JPEG decoder's baseline and
 progressive entropy decodes, IDCT and colour pass) against their plain
-PyTorch versions.
+PyTorch versions; the IDCT and colour pass also on frames that stress
+their tiles and edges, on blocks at and past the 32-bit IDCT route's bound
+and on damaged files' blocks.
 
 Imports torch and numpy only, so it runs on a machine with a card:
 
@@ -533,3 +535,61 @@ def test_jpeg_kernels_on_damaged_segments(subseq_bits, tmp_path):
     st, pst = _jpeg_against_plain(paths, subseq_bits)
     codes = set(st.tolist()) | set(pst.tolist())
     assert {1, 3} <= codes  # a code in no table, a segment that ends early
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edge frames", "extreme blocks", "damaged files"])
+def test_jpeg_idct_and_color_kernels_at_the_edges(case, tmp_path):
+    """csrc/jpeg_idct.cu's IDCT and colour pass equal idct_plain and
+    color_plain bit for bit, one launch each: on one mixed batch of
+    testing.edge_jpegs frames (854×480, a frame smaller than a colour tile,
+    widths 16k ± 1, the 3×4 box case; every subsampling and gray); on
+    testing.extreme_idct_blocks (±32767 under quantisers up to 255, and
+    columns at and just past the 32-bit route's bound, IDCT32_MAX); on the
+    blocks the entropy decodes leave in damaged copies of the fixtures."""
+    from rodynrf_tpu_torch.data import jpeg as J
+    from rodynrf_tpu_torch.ops import jpeg as K
+    from rodynrf_tpu_torch.testing import damaged_jpegs, edge_jpegs, extreme_idct_blocks
+
+    dev = _card()
+    fixtures = [str(p) for p in sorted((REPO / "tests" / "data" / "jpeg").glob("*.jpg"))]
+    paths = (edge_jpegs(str(tmp_path), seed=14) if case == "edge frames"
+             else damaged_jpegs(fixtures, str(tmp_path), seed=14) if case == "damaged files"
+             else fixtures)
+    host = J.pack([J.read_jpeg(p) for p in paths])
+    coef, _ = J.entropy_decode_plain(host)
+    J.progressive_decode_plain(coef, host)
+    if case == "extreme blocks":
+        coef, host = extreme_idct_blocks(host, seed=14)
+    planes_p = J.idct_plain(coef, host)
+    rgb_p = J.color_plain(planes_p, host)
+    card = host.to(dev)
+    before = (K.jpeg_idct.launches, K.jpeg_color.launches)
+    planes = K.jpeg_idct(coef.to(dev), card)
+    rgb = K.jpeg_color(planes, card)
+    torch.cuda.synchronize()
+    assert (K.jpeg_idct.launches, K.jpeg_color.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(planes.cpu(), planes_p)
+    assert torch.equal(rgb.cpu(), rgb_p)
+
+
+@pytest.mark.cuda
+def test_jpeg_idct_and_color_refuse_unaligned_inputs():
+    """The IDCT and the colour pass read 16-byte words: a view that starts
+    off a 16-byte boundary is refused before any launch."""
+    from rodynrf_tpu_torch.data import jpeg as J
+    from rodynrf_tpu_torch.ops import jpeg as K
+
+    dev = _card()
+    host = J.pack([J.read_jpeg(str(REPO / "tests" / "data" / "jpeg" / "rgb420_q95_48x64.jpg"))])
+    card = host.to(dev)
+    coef = torch.zeros(host.n_blocks * 64 + 8, dtype=torch.int16, device=dev)[1:1 + 64 *
+                                                                             host.n_blocks]
+    planes = torch.zeros(host.n_plane_bytes + 16, dtype=torch.uint8, device=dev)[1:1 + host
+                                                                                .n_plane_bytes]
+    before = (K.jpeg_idct.launches, K.jpeg_color.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.jpeg_idct(coef.view(host.n_blocks, 64), card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.jpeg_color(planes, card)
+    assert (K.jpeg_idct.launches, K.jpeg_color.launches) == before
