@@ -1,0 +1,13 @@
+"""Peak device memory of the window: torch.cuda.max_memory_allocated after
+a reset at the window's start, in GiB."""
+
+UNIT = "GiB"
+LAYER = "device"
+MOVES = "render_rays_per_s"
+BETTER = "lower"
+
+
+def read(run):
+    if run.kind != "render" or run.peak_window_bytes <= 0:
+        return None
+    return run.peak_window_bytes / 2 ** 30
