@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import span
 from . import cuda_build
 from .segsum import (OUT_DTYPES, bind_common, current_stream, data_ptr, key_bits,
                      scratch_bytes, segment_rows_sum_factored, workspace)
@@ -58,7 +59,8 @@ class _PlanesSample(torch.autograd.Function):
             vals = table.index_select(0, rows).to(w4.dtype).view(M, 4, C)
             ct_w4 = torch.einsum("mc,mkc->mk", ct, vals)
         if ctx.needs_input_grad[0]:
-            ct_table = coalesce_table_grad(rows, w4, ct, table.shape[0], table.dtype)
+            with span("ops.table_grad"):
+                ct_table = coalesce_table_grad(rows, w4, ct, table.shape[0], table.dtype)
         return ct_table, None, ct_w4
 
 
@@ -113,8 +115,9 @@ class _MergedSample(torch.autograd.Function):
             # rounded once to the table dtype (what autodiff of the JAX
             # package's inline merged take produces), summed per row in f32
             # and rounded to the table dtype; on the card u stays in registers
-            ct_table = segment_rows_sum_factored(rows.contiguous(), w.contiguous(), ct,
-                                                 table.shape[0], table.dtype)
+            with span("ops.table_grad"):
+                ct_table = segment_rows_sum_factored(rows.contiguous(), w.contiguous(), ct,
+                                                     table.shape[0], table.dtype)
         return ct_table, None, ct_w
 
 

@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import span
+
 
 def _exclusive_transmittance(alpha: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     """T_i = prod_{j<i} (1 - alpha_j + eps); shape preserved [R, S]."""
@@ -104,55 +106,56 @@ def raw2outputs(rgb_s, sigma_s, rgb_d, sigma_d, dists, blending, z_vals, rays, *
     remainder, the reference's stochastic background (renderer.py:269-272);
     a bool tensor [R] gives each row its own coin.
     """
-    alpha_d = 1.0 - torch.exp(-sigma_d * dists)
-    alpha_s = 1.0 - torch.exp(-sigma_s * dists)
+    with span("compositor"):
+        alpha_d = 1.0 - torch.exp(-sigma_d * dists)
+        alpha_s = 1.0 - torch.exp(-sigma_s * dists)
 
-    T_d = _exclusive_transmittance(alpha_d)
-    T_s = _exclusive_transmittance(alpha_s)
-    alpha_mix = (1.0 - alpha_d * blending) * (1.0 - alpha_s * (1.0 - blending))
-    T_full = torch.cumprod(
-        torch.cat([torch.ones_like(alpha_d[:, :1]), alpha_mix[:, :-1] + 1e-10], -1), dim=-1
-    )
+        T_d = _exclusive_transmittance(alpha_d)
+        T_s = _exclusive_transmittance(alpha_s)
+        alpha_mix = (1.0 - alpha_d * blending) * (1.0 - alpha_s * (1.0 - blending))
+        T_full = torch.cumprod(
+            torch.cat([torch.ones_like(alpha_d[:, :1]), alpha_mix[:, :-1] + 1e-10], -1), dim=-1
+        )
 
-    weights_d = alpha_d * T_d
-    weights_s = alpha_s * T_s
-    weights_d = weights_d / torch.clamp(torch.sum(weights_d, -1, keepdim=True), min=1e-10)
-    weights_full = (alpha_d * blending + alpha_s * (1.0 - blending)) * T_full
+        weights_d = alpha_d * T_d
+        weights_s = alpha_s * T_s
+        weights_d = weights_d / torch.clamp(torch.sum(weights_d, -1, keepdim=True), min=1e-10)
+        weights_full = (alpha_d * blending + alpha_s * (1.0 - blending)) * T_full
 
-    rgb_map_d = torch.sum(weights_d[..., None] * rgb_d, -2)
-    rgb_map_s = torch.sum(weights_s[..., None] * rgb_s, -2)
-    rgb_map_full = torch.sum(
-        (T_full * alpha_d * blending)[..., None] * rgb_d
-        + (T_full * alpha_s * (1.0 - blending))[..., None] * rgb_s,
-        -2,
-    )
+        rgb_map_d = torch.sum(weights_d[..., None] * rgb_d, -2)
+        rgb_map_s = torch.sum(weights_s[..., None] * rgb_s, -2)
+        rgb_map_full = torch.sum(
+            (T_full * alpha_d * blending)[..., None] * rgb_d
+            + (T_full * alpha_s * (1.0 - blending))[..., None] * rgb_s,
+            -2,
+        )
 
-    acc_d = torch.sum(weights_d, -1)
-    acc_s = torch.sum(weights_s, -1)
-    acc_full = torch.sum(weights_full, -1)
+        acc_d = torch.sum(weights_d, -1)
+        acc_s = torch.sum(weights_s, -1)
+        acc_full = torch.sum(weights_full, -1)
 
-    if is_train and _any_white(white):
-        rgb_map_d = _white_fill(rgb_map_d, 1.0 - acc_d[..., None], white)
-        rgb_map_s = _white_fill(rgb_map_s, 1.0 - acc_s[..., None], white)
-        rgb_map_full = _white_fill(rgb_map_full, torch.relu(1.0 - acc_full[..., None]), white)
+        if is_train and _any_white(white):
+            rgb_map_d = _white_fill(rgb_map_d, 1.0 - acc_d[..., None], white)
+            rgb_map_s = _white_fill(rgb_map_s, 1.0 - acc_s[..., None], white)
+            rgb_map_full = _white_fill(rgb_map_full, torch.relu(1.0 - acc_full[..., None]), white)
 
-    depth_d = _depth_tail(torch.sum(weights_d * z_vals, -1), acc_d, rays, ray_type)
-    depth_s = _depth_tail(torch.sum(weights_s * z_vals, -1), acc_s, rays, ray_type)
-    depth_full = _depth_tail(torch.sum(weights_full * z_vals, -1), acc_full, rays, ray_type,
-                             relu=True)
+        depth_d = _depth_tail(torch.sum(weights_d * z_vals, -1), acc_d, rays, ray_type)
+        depth_s = _depth_tail(torch.sum(weights_s * z_vals, -1), acc_s, rays, ray_type)
+        depth_full = _depth_tail(torch.sum(weights_full * z_vals, -1), acc_full, rays, ray_type,
+                                 relu=True)
 
-    return RenderOutputs(
-        torch.clamp(rgb_map_full, 0.0, 1.0),
-        depth_full,
-        acc_full,
-        weights_full,
-        torch.clamp(rgb_map_s, 0.0, 1.0),
-        depth_s,
-        acc_s,
-        weights_s,
-        torch.clamp(rgb_map_d, 0.0, 1.0),
-        depth_d,
-        acc_d,
-        weights_d,
-        torch.sum(weights_full * blending, -1),
-    )
+        return RenderOutputs(
+            torch.clamp(rgb_map_full, 0.0, 1.0),
+            depth_full,
+            acc_full,
+            weights_full,
+            torch.clamp(rgb_map_s, 0.0, 1.0),
+            depth_s,
+            acc_s,
+            weights_s,
+            torch.clamp(rgb_map_d, 0.0, 1.0),
+            depth_d,
+            acc_d,
+            weights_d,
+            torch.sum(weights_full * blending, -1),
+        )

@@ -27,6 +27,7 @@ from ..fields.mlps import apply_shading
 from ..fields.static import feature2density
 from ..ops.compaction import compact_rows, expand_rows, topk_select
 from ..ops.compositing import raw2alpha
+from ..utils.profiling import span
 
 
 class FieldEval(NamedTuple):
@@ -134,56 +135,57 @@ def eval_static_field(params, cfg: FieldConfig, aabb, rays, ts, xyz, z_vals, ray
     which compacted z_vals cannot give). flat_n > 0: the per-sample work
     runs through a flat [flat_n] bucket of the ray_valid samples; flat_base:
     this rank's row offsets into the whole batch's bucket (_flat_index)."""
-    R, S, _ = xyz.shape
-    dense_dists, viewdirs = _dists_and_viewdirs(rays, z_vals, ray_type)
-    dists = (dense_dists if dists is None else dists) * cfg.distance_scale
-    xyz_n = dyn.normalize_coord(xyz, aabb)
-    if packed is None:
-        packed = stat.pack_tables(params, cfg)
+    with span("field.static"):
+        R, S, _ = xyz.shape
+        dense_dists, viewdirs = _dists_and_viewdirs(rays, z_vals, ray_type)
+        dists = (dense_dists if dists is None else dists) * cfg.distance_scale
+        xyz_n = dyn.normalize_coord(xyz, aabb)
+        if packed is None:
+            packed = stat.pack_tables(params, cfg)
 
-    if flat_n > 0:
-        RS = R * S
-        idx_flat, idx_safe, rid = _flat_index(ray_valid, flat_n, flat_base)
-        pts_f = xyz_n.reshape(RS, 3).index_select(0, idx_safe)
-        sigma_feat_f, app_f = stat.all_features_fused(params, cfg, pts_f, packed=packed)
-        rgb_f = apply_shading(
-            params["shading"], cfg.shading_mode, cfg.view_pe, cfg.fea_pe, cfg.pos_pe,
-            pts_f, viewdirs.index_select(0, rid), app_f, ts.index_select(0, rid)[:, None],
-        )
-        covered, dense = _scatter_payload(
-            idx_flat, (feature2density(sigma_feat_f, cfg), rgb_f), RS)
-        sigma = torch.where(ray_valid & covered.reshape(R, S), dense[:, 0].reshape(R, S), 0.0)
+        if flat_n > 0:
+            RS = R * S
+            idx_flat, idx_safe, rid = _flat_index(ray_valid, flat_n, flat_base)
+            pts_f = xyz_n.reshape(RS, 3).index_select(0, idx_safe)
+            sigma_feat_f, app_f = stat.all_features_fused(params, cfg, pts_f, packed=packed)
+            rgb_f = apply_shading(
+                params["shading"], cfg.shading_mode, cfg.view_pe, cfg.fea_pe, cfg.pos_pe,
+                pts_f, viewdirs.index_select(0, rid), app_f, ts.index_select(0, rid)[:, None],
+            )
+            covered, dense = _scatter_payload(
+                idx_flat, (feature2density(sigma_feat_f, cfg), rgb_f), RS)
+            sigma = torch.where(ray_valid & covered.reshape(R, S), dense[:, 0].reshape(R, S), 0.0)
+            _, weight, _ = raw2alpha(sigma, dists)
+            rgb = torch.where((weight > cfg.ray_march_weight_thres)[..., None],
+                              dense[:, 1:4].reshape(R, S, 3), 0.0)
+            return FieldEval(blending=None, pts_ref=xyz, weights=weight, xyz_prime=None,
+                             rgb=rgb, sigma=sigma, z_vals=z_vals, dists=dists)
+
+        flat = xyz_n.reshape(-1, 3)
+        K = cfg.app_topk(S)
+        compacted = isinstance(packed, dict) and 0 < K < S
+        if compacted:
+            sigma_feat = stat.density_fused(params, cfg, flat, packed)
+        else:
+            sigma_feat, app_feats = stat.all_features_fused(params, cfg, flat, packed=packed)
+        sigma = torch.where(ray_valid, feature2density(sigma_feat.reshape(R, S), cfg), 0.0)
         _, weight, _ = raw2alpha(sigma, dists)
-        rgb = torch.where((weight > cfg.ray_march_weight_thres)[..., None],
-                          dense[:, 1:4].reshape(R, S, 3), 0.0)
+
+        if compacted:
+            rgb = _shade_compacted(
+                params["shading"], cfg, weight, topk_select(weight, K, cfg.ray_march_weight_thres),
+                xyz_n, viewdirs, lambda pts: stat.app_fused(params, cfg, pts, packed), ts,
+            )
+        else:
+            vd = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
+            t_in = ts[:, None].expand(R, S).reshape(-1, 1)
+            rgb_raw = apply_shading(
+                params["shading"], cfg.shading_mode, cfg.view_pe, cfg.fea_pe, cfg.pos_pe,
+                flat, vd, app_feats, t_in,
+            ).reshape(R, S, 3)
+            rgb = torch.where((weight > cfg.ray_march_weight_thres)[..., None], rgb_raw, 0.0)
         return FieldEval(blending=None, pts_ref=xyz, weights=weight, xyz_prime=None,
                          rgb=rgb, sigma=sigma, z_vals=z_vals, dists=dists)
-
-    flat = xyz_n.reshape(-1, 3)
-    K = cfg.app_topk(S)
-    compacted = isinstance(packed, dict) and 0 < K < S
-    if compacted:
-        sigma_feat = stat.density_fused(params, cfg, flat, packed)
-    else:
-        sigma_feat, app_feats = stat.all_features_fused(params, cfg, flat, packed=packed)
-    sigma = torch.where(ray_valid, feature2density(sigma_feat.reshape(R, S), cfg), 0.0)
-    _, weight, _ = raw2alpha(sigma, dists)
-
-    if compacted:
-        rgb = _shade_compacted(
-            params["shading"], cfg, weight, topk_select(weight, K, cfg.ray_march_weight_thres),
-            xyz_n, viewdirs, lambda pts: stat.app_fused(params, cfg, pts, packed), ts,
-        )
-    else:
-        vd = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
-        t_in = ts[:, None].expand(R, S).reshape(-1, 1)
-        rgb_raw = apply_shading(
-            params["shading"], cfg.shading_mode, cfg.view_pe, cfg.fea_pe, cfg.pos_pe,
-            flat, vd, app_feats, t_in,
-        ).reshape(R, S, 3)
-        rgb = torch.where((weight > cfg.ray_march_weight_thres)[..., None], rgb_raw, 0.0)
-    return FieldEval(blending=None, pts_ref=xyz, weights=weight, xyz_prime=None,
-                     rgb=rgb, sigma=sigma, z_vals=z_vals, dists=dists)
 
 
 def eval_dynamic_field(params, cfg: FieldConfig, aabb, rays, ts, xyz, z_vals, ray_valid,
@@ -193,72 +195,73 @@ def eval_dynamic_field(params, cfg: FieldConfig, aabb, rays, ts, xyz, z_vals, ra
     evaluated once and shared by the density, blending and appearance
     gathers. dists, flat_n, flat_base: see eval_static_field; on the flat branch
     xyz_prime is zero off the kept samples (no loss reads it there)."""
-    R, S, _ = xyz.shape
-    dense_dists, viewdirs = _dists_and_viewdirs(rays, z_vals, ray_type)
-    dists = (dense_dists if dists is None else dists) * cfg.distance_scale
-    if packed is None:
-        packed = dyn.pack_tables(params, cfg)
+    with span("field.dynamic"):
+        R, S, _ = xyz.shape
+        dense_dists, viewdirs = _dists_and_viewdirs(rays, z_vals, ray_type)
+        dists = (dense_dists if dists is None else dists) * cfg.distance_scale
+        if packed is None:
+            packed = dyn.pack_tables(params, cfg)
 
-    if flat_n > 0:
-        RS = R * S
-        idx_flat, idx_safe, rid = _flat_index(ray_valid, flat_n, flat_base)
-        xyz_f = xyz.reshape(RS, 3).index_select(0, idx_safe)
-        t_f = ts.index_select(0, rid)
-        xyz_prime_f = dyn.warp_coordinate(params, xyz_f, t_f, aabb)
-        xyz_n_f = dyn.normalize_coord(xyz_f, aabb)
-        sigma_feat_f, blend_feat_f, app_f = dyn.all_features_fused(
-            params, cfg, xyz_n_f, t_f, dyn.normalize_coord(xyz_prime_f, aabb), packed=packed
-        )
-        rgb_f = apply_shading(
-            params["shading"], cfg.shading_mode, cfg.view_pe, cfg.fea_pe, cfg.pos_pe,
-            xyz_n_f, viewdirs.index_select(0, rid), app_f, t_f[:, None],
-        )
-        covered, dense = _scatter_payload(
-            idx_flat, (feature2density(sigma_feat_f, cfg), torch.sigmoid(blend_feat_f), rgb_f,
-                       xyz_prime_f), RS)
-        live = ray_valid & covered.reshape(R, S)
-        sigma = torch.where(live, dense[:, 0].reshape(R, S), 0.0)
-        blending = torch.where(live, dense[:, 1].reshape(R, S), 0.0)
+        if flat_n > 0:
+            RS = R * S
+            idx_flat, idx_safe, rid = _flat_index(ray_valid, flat_n, flat_base)
+            xyz_f = xyz.reshape(RS, 3).index_select(0, idx_safe)
+            t_f = ts.index_select(0, rid)
+            xyz_prime_f = dyn.warp_coordinate(params, xyz_f, t_f, aabb)
+            xyz_n_f = dyn.normalize_coord(xyz_f, aabb)
+            sigma_feat_f, blend_feat_f, app_f = dyn.all_features_fused(
+                params, cfg, xyz_n_f, t_f, dyn.normalize_coord(xyz_prime_f, aabb), packed=packed
+            )
+            rgb_f = apply_shading(
+                params["shading"], cfg.shading_mode, cfg.view_pe, cfg.fea_pe, cfg.pos_pe,
+                xyz_n_f, viewdirs.index_select(0, rid), app_f, t_f[:, None],
+            )
+            covered, dense = _scatter_payload(
+                idx_flat, (feature2density(sigma_feat_f, cfg), torch.sigmoid(blend_feat_f), rgb_f,
+                           xyz_prime_f), RS)
+            live = ray_valid & covered.reshape(R, S)
+            sigma = torch.where(live, dense[:, 0].reshape(R, S), 0.0)
+            blending = torch.where(live, dense[:, 1].reshape(R, S), 0.0)
+            _, weight, _ = raw2alpha(sigma, dists)
+            rgb = torch.where((weight > cfg.ray_march_weight_thres)[..., None],
+                              dense[:, 2:5].reshape(R, S, 3), 0.0)
+            return FieldEval(blending=blending, pts_ref=xyz, weights=weight,
+                             xyz_prime=dense[:, 5:8].reshape(R, S, 3), rgb=rgb, sigma=sigma,
+                             z_vals=z_vals, dists=dists)
+
+        xyz_flat = xyz.reshape(-1, 3)
+        xyz_n = dyn.normalize_coord(xyz_flat, aabb)
+        t_flat = ts[:, None].expand(R, S).reshape(-1)
+        xyz_prime = dyn.warp_coordinate(params, xyz_flat, t_flat, aabb)
+        xyz_prime_n = dyn.normalize_coord(xyz_prime, aabb)
+        K = cfg.app_topk(S)
+        compacted = isinstance(packed, dict) and 0 < K < S
+        if compacted:
+            sigma_feat, blend_feat = dyn.density_blend_fused(
+                params, cfg, xyz_n, t_flat, xyz_prime_n, packed)
+        else:
+            sigma_feat, blend_feat, app_feats = dyn.all_features_fused(
+                params, cfg, xyz_n, t_flat, xyz_prime_n, packed=packed
+            )
+        sigma = torch.where(ray_valid, feature2density(sigma_feat.reshape(R, S), cfg), 0.0)
         _, weight, _ = raw2alpha(sigma, dists)
-        rgb = torch.where((weight > cfg.ray_march_weight_thres)[..., None],
-                          dense[:, 2:5].reshape(R, S, 3), 0.0)
+
+        if compacted:
+            # leading 3 channels: warped coords (appearance gather); trailing 3:
+            # unwarped normalized coords (shading MLP input)
+            pts6 = torch.cat([xyz_prime_n.reshape(R, S, 3), xyz_n.reshape(R, S, 3)], dim=-1)
+            rgb = _shade_compacted(
+                params["shading"], cfg, weight, topk_select(weight, K, cfg.ray_march_weight_thres),
+                pts6, viewdirs, lambda pts: dyn.app_fused(params, cfg, pts, packed), ts,
+            )
+        else:
+            vd = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
+            rgb_raw = apply_shading(
+                params["shading"], cfg.shading_mode, cfg.view_pe, cfg.fea_pe, cfg.pos_pe,
+                xyz_n, vd, app_feats, t_flat[:, None],
+            ).reshape(R, S, 3)
+            rgb = torch.where((weight > cfg.ray_march_weight_thres)[..., None], rgb_raw, 0.0)
+        blending = torch.where(ray_valid, torch.sigmoid(blend_feat.reshape(R, S)), 0.0)
         return FieldEval(blending=blending, pts_ref=xyz, weights=weight,
-                         xyz_prime=dense[:, 5:8].reshape(R, S, 3), rgb=rgb, sigma=sigma,
+                         xyz_prime=xyz_prime.reshape(R, S, 3), rgb=rgb, sigma=sigma,
                          z_vals=z_vals, dists=dists)
-
-    xyz_flat = xyz.reshape(-1, 3)
-    xyz_n = dyn.normalize_coord(xyz_flat, aabb)
-    t_flat = ts[:, None].expand(R, S).reshape(-1)
-    xyz_prime = dyn.warp_coordinate(params, xyz_flat, t_flat, aabb)
-    xyz_prime_n = dyn.normalize_coord(xyz_prime, aabb)
-    K = cfg.app_topk(S)
-    compacted = isinstance(packed, dict) and 0 < K < S
-    if compacted:
-        sigma_feat, blend_feat = dyn.density_blend_fused(
-            params, cfg, xyz_n, t_flat, xyz_prime_n, packed)
-    else:
-        sigma_feat, blend_feat, app_feats = dyn.all_features_fused(
-            params, cfg, xyz_n, t_flat, xyz_prime_n, packed=packed
-        )
-    sigma = torch.where(ray_valid, feature2density(sigma_feat.reshape(R, S), cfg), 0.0)
-    _, weight, _ = raw2alpha(sigma, dists)
-
-    if compacted:
-        # leading 3 channels: warped coords (appearance gather); trailing 3:
-        # unwarped normalized coords (shading MLP input)
-        pts6 = torch.cat([xyz_prime_n.reshape(R, S, 3), xyz_n.reshape(R, S, 3)], dim=-1)
-        rgb = _shade_compacted(
-            params["shading"], cfg, weight, topk_select(weight, K, cfg.ray_march_weight_thres),
-            pts6, viewdirs, lambda pts: dyn.app_fused(params, cfg, pts, packed), ts,
-        )
-    else:
-        vd = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
-        rgb_raw = apply_shading(
-            params["shading"], cfg.shading_mode, cfg.view_pe, cfg.fea_pe, cfg.pos_pe,
-            xyz_n, vd, app_feats, t_flat[:, None],
-        ).reshape(R, S, 3)
-        rgb = torch.where((weight > cfg.ray_march_weight_thres)[..., None], rgb_raw, 0.0)
-    blending = torch.where(ray_valid, torch.sigmoid(blend_feat.reshape(R, S)), 0.0)
-    return FieldEval(blending=blending, pts_ref=xyz, weights=weight,
-                     xyz_prime=xyz_prime.reshape(R, S, 3), rgb=rgb, sigma=sigma,
-                     z_vals=z_vals, dists=dists)

@@ -35,6 +35,7 @@ from ..fields.config import FieldConfig
 from ..fields.mlps import apply_shading
 from ..fields.static import feature2density
 from ..ops.compositing import raw2alpha, raw2outputs
+from ..utils.profiling import span
 from .flow import induce_flow
 from .pipeline import _dists_and_viewdirs, _flat_index, eval_dynamic_field, eval_static_field
 from .sampling import sample_xyz
@@ -293,24 +294,25 @@ def _host(tensors):
 def render_image(render_chunk, params, aabb, pose_c2w, focal, t_value: float, H: int, W: int,
                  ray_type: str, chunk: int = 8192) -> Dict[str, np.ndarray]:
     """Render one frame; returns host numpy maps shaped [H, W, ...]."""
-    with torch.inference_mode():
-        rays = rays_for_view(pose_c2w, focal, H, W, ray_type, device=aabb.device)
-        N = rays.shape[0]
-        ts = torch.full((N,), float(t_value), dtype=torch.float32, device=aabb.device)
-        packs = render_chunk.pack(params)
-        outs = [_host(render_chunk(params, packs, aabb, rays[sl], ts[sl]))
-                for sl in _chunks(N, chunk)]
-    cat = RenderMaps(*(np.concatenate(xs, 0) for xs in zip(*outs)))
-    return {
-        "rgb": cat.rgb.reshape(H, W, 3),
-        "depth": cat.depth.reshape(H, W),
-        "rgb_s": cat.rgb_s.reshape(H, W, 3),
-        "depth_s": cat.depth_s.reshape(H, W),
-        "rgb_d": cat.rgb_d.reshape(H, W, 3),
-        "depth_d": cat.depth_d.reshape(H, W),
-        "blending": cat.blending.reshape(H, W),
-        "delta_xyz": cat.delta_xyz.reshape(H, W, 3),
-    }
+    with span("render.frame", t=float(t_value)):
+        with torch.inference_mode():
+            rays = rays_for_view(pose_c2w, focal, H, W, ray_type, device=aabb.device)
+            N = rays.shape[0]
+            ts = torch.full((N,), float(t_value), dtype=torch.float32, device=aabb.device)
+            packs = render_chunk.pack(params)
+            outs = [_host(render_chunk(params, packs, aabb, rays[sl], ts[sl]))
+                    for sl in _chunks(N, chunk)]
+        cat = RenderMaps(*(np.concatenate(xs, 0) for xs in zip(*outs)))
+        return {
+            "rgb": cat.rgb.reshape(H, W, 3),
+            "depth": cat.depth.reshape(H, W),
+            "rgb_s": cat.rgb_s.reshape(H, W, 3),
+            "depth_s": cat.depth_s.reshape(H, W),
+            "rgb_d": cat.rgb_d.reshape(H, W, 3),
+            "depth_d": cat.depth_d.reshape(H, W),
+            "blending": cat.blending.reshape(H, W),
+            "delta_xyz": cat.delta_xyz.reshape(H, W, 3),
+        }
 
 
 def render_image_vis(render_chunk_vis, params, aabb, pose_c2w, pose_f, pose_b, focal,

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..core.spaces import contract
+from ..utils.profiling import span
 
 
 def _rand(gen: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
@@ -94,11 +95,12 @@ def sample_xyz(rays: torch.Tensor, n_samples: int, ray_type: str, near_far, aabb
                step_size: float, gen: Optional[torch.Generator] = None,
                det_jitter: bool = False):
     """Dispatch (reference: renderer.py:147-170). rays [R, 6] packed (o, d)."""
-    rays_o, rays_d = rays[:, :3], rays[:, 3:6]
-    near, far = near_far
-    if ray_type == "ndc":
-        return sample_ray_ndc(rays_o, rays_d, near, far, n_samples, aabb, gen, det_jitter)
-    if ray_type == "contract":
-        return sample_ray_contracted(rays_o, rays_d, near, far, n_samples, gen, det_jitter)
-    return sample_ray_world(rays_o, rays_d, near, far, n_samples, aabb, step_size, gen,
-                            det_jitter)
+    with span("sampler"):
+        rays_o, rays_d = rays[:, :3], rays[:, 3:6]
+        near, far = near_far
+        if ray_type == "ndc":
+            return sample_ray_ndc(rays_o, rays_d, near, far, n_samples, aabb, gen, det_jitter)
+        if ray_type == "contract":
+            return sample_ray_contracted(rays_o, rays_d, near, far, n_samples, gen, det_jitter)
+        return sample_ray_world(rays_o, rays_d, near, far, n_samples, aabb, step_size, gen,
+                                det_jitter)

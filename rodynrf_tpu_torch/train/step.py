@@ -68,6 +68,7 @@ from ..render.pipeline import (
     eval_static_field,
 )
 from ..render.sampling import sample_xyz
+from ..utils.profiling import span
 from . import losses as L
 
 
@@ -1085,16 +1086,17 @@ def apply_updates(params, opt_state, sc):
     """Adam step of every group at this iteration's learning rates. A
     parameter the loss did not reach steps with a zero gradient, as in the
     JAX package (its moments decay)."""
-    for _, t in named_leaves(params):
-        if t.grad is None:
-            t.grad = torch.zeros_like(t)
-    spatial, network = opt_state["fields"].param_groups
-    spatial["lr"] = float(sc["lr_spatial"])
-    network["lr"] = float(sc["lr_network"])
-    opt_state["pose"].param_groups[0]["lr"] = float(sc["lr_pose"])
-    opt_state["fov"].param_groups[0]["lr"] = float(sc["lr_focal"])
-    for opt in opt_state.values():
-        opt.step()
+    with span("train.adam"):
+        for _, t in named_leaves(params):
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+        spatial, network = opt_state["fields"].param_groups
+        spatial["lr"] = float(sc["lr_spatial"])
+        network["lr"] = float(sc["lr_network"])
+        opt_state["pose"].param_groups[0]["lr"] = float(sc["lr_pose"])
+        opt_state["fov"].param_groups[0]["lr"] = float(sc["lr_focal"])
+        for opt in opt_state.values():
+            opt.step()
 
 
 class TrainStep:
@@ -1132,8 +1134,10 @@ class TrainStep:
         A = max(1, int(S.grad_accum))
         metrics: Dict[str, Any] = {}
         for ri, rr in zip(ray_idx.reshape(A, -1), ray_idx_rand.reshape(A, -1)):
-            total, m = train_loss(work, S, aabb, data, ri, rr, gen, sc)
-            (total / A if A > 1 else total).backward()
+            with span("train.forward"):
+                total, m = train_loss(work, S, aabb, data, ri, rr, gen, sc)
+            with span("train.backward"):
+                (total / A if A > 1 else total).backward()
             for k, v in m.items():
                 v = v.detach() if torch.is_tensor(v) else v
                 metrics[k] = v if A == 1 else metrics.get(k, 0.0) + v / A

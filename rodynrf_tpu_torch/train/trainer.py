@@ -50,6 +50,7 @@ from ..fields.alpha_mask import (
 )
 from ..parallel import mesh as pmesh
 from ..render.sampling import sample_xyz
+from ..utils.profiling import span
 from .checkpoints import load_checkpoint, save_checkpoint
 from .convert import params_from_numpy, params_to_numpy
 from .schedule import LrSchedule, PermutationSampler, n_voxel_schedule
@@ -463,24 +464,25 @@ class Trainer:
         grid is first used by the next iteration (the reference's in-body
         check, train.py:2582)."""
         i = self.iteration
-        if self.sampler_override is not None:
-            idx, idx_rand = self.sampler_override(i)
-        else:
-            idx, idx_rand = self.sampler.nextids(), self.sampler2.nextids()
-        ray_idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(self.device)
-        ray_idx_rand = torch.as_tensor(np.asarray(idx_rand), dtype=torch.int64).to(self.device)
-        sc = {"iteration": i, "focal_fixed": self.focal_fixed, **self.schedule.scalars(i)}
-        metrics = self.step_fn(
-            self.params, self.opt_state, self.aabb, self.data, ray_idx, ray_idx_rand, self.gen, sc
-        )
-        self.schedule.after_step(i)
-        self.iteration += 1
-        cfg_changed = self._refresh_app_frac()
-        if i in self.args.upsamp_list:
-            self._upsample(i)
-        elif cfg_changed:
-            self._build_step()
-        return metrics
+        with span("train.step", iteration=i):
+            if self.sampler_override is not None:
+                idx, idx_rand = self.sampler_override(i)
+            else:
+                idx, idx_rand = self.sampler.nextids(), self.sampler2.nextids()
+            ray_idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(self.device)
+            ray_idx_rand = torch.as_tensor(np.asarray(idx_rand), dtype=torch.int64).to(
+                self.device)
+            sc = {"iteration": i, "focal_fixed": self.focal_fixed, **self.schedule.scalars(i)}
+            metrics = self.step_fn(self.params, self.opt_state, self.aabb, self.data, ray_idx,
+                                   ray_idx_rand, self.gen, sc)
+            self.schedule.after_step(i)
+            self.iteration += 1
+            cfg_changed = self._refresh_app_frac()
+            if i in self.args.upsamp_list:
+                self._upsample(i)
+            elif cfg_changed:
+                self._build_step()
+            return metrics
 
     def _build_step(self):
         self.step_fn = make_train_step(self._statics(), device=self.device)

@@ -1,81 +1,136 @@
-"""Tracing and profiling hooks (port of rodynrf_tpu/utils/profiling.py).
+"""The port's tracer: named spans inside the program.
 
-The reference has no profiling support (SURVEY.md §5.1, tqdm only). Here:
-  * `trace(logdir)`: a torch.profiler capture of the enclosed block (host
-    and, on the card, CUDA activity), written to `logdir` as a Chrome trace
-    (view in chrome://tracing or Perfetto);
-  * `annotate(name)`: a named region in that trace (torch.profiler.
-    record_function; an NVTX range when a CUDA tool records one);
-  * `StepTimer`: rolling wall-clock statistics of the hot loop; on the card
-    (its default; it refuses without one unless given the CPU) it
-    synchronises at both ends of a timed block, so a step's time is the
-    device's, not its enqueue's.
+Program code calls `span(name, **attrs)` and nothing else:
+
+    with span("sampler"):
+        ...
+
+Off (the default) `span` returns one shared no-op context: it records
+nothing, enters no profiler region, and launches and synchronises nothing.
+
+`enable()` turns the tracer on for the process. Each span then records its
+name and attributes, its start and end in ns on `time.perf_counter_ns`, its
+id, the id of the span open around it on the same thread (None for a
+thread's outermost span), the thread's id, and the id of its root. A root
+is a span opened while no root is open anywhere in the process
+(`train.step`, `render.frame`). A span opened on another thread while a
+root is open takes that root, so every span of a step or a frame shares one
+root id, those of a backward run on the autograd engine's device thread
+included. `take()` returns the finished spans and clears them; `disable()`
+turns the tracer off.
+
+While a torch profiler records, an enabled span also opens a
+`torch.profiler.record_function` region of its name, so the profile shows
+it on its thread beside the launches made inside it. `trace_offset_ns`
+maps the span clock onto a profile's: a stamp plus the offset is ns after
+the profile's start, the origin of its events' `time_range` (in µs).
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import itertools
+import threading
 import time
-from typing import Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
-from ..device import check_device
+
+class Span(NamedTuple):
+    name: str
+    attrs: Dict[str, Any]
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]
+    thread: int
+    root: int
 
 
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Capture a torch.profiler trace of the enclosed block into
-    `logdir/trace.json`; yields the profiler (for key_averages())."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+_NOOP = contextlib.nullcontext()
+_on = False
+_lock = threading.Lock()
+_done: List[Span] = []
+_ids = itertools.count(1)
+_local = threading.local()
+_root: Optional[int] = None  # the open root's id
 
 
-def annotate(name: str):
-    """Named region in the profiler timeline."""
-    return torch.profiler.record_function(name)
+class _Open:
+    """An enabled span while it is open."""
 
+    __slots__ = ("name", "attrs", "id", "parent", "root", "start", "region", "stack")
 
-class StepTimer:
-    """Rolling wall-clock stats (mean/p50/p95) for train/render steps. On
-    the card (the default) each timed block starts and ends with a
-    synchronisation; `device="cpu"` times host work."""
-
-    def __init__(self, window: int = 200, device="cuda"):
-        self.window = window
-        self.samples = []
-        self.device = check_device(device)
-        self._t0: Optional[float] = None
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def __init__(self, name: str, attrs: Dict[str, Any]):
+        self.name, self.attrs = name, attrs
 
     def __enter__(self):
-        self._sync()
-        self._t0 = time.perf_counter()
+        global _root
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.stack = stack
+        self.id = next(_ids)
+        if stack:
+            self.parent, self.root = stack[-1].id, stack[-1].root
+        else:
+            self.parent = None
+            if _root is None:
+                _root = self.id
+            self.root = _root
+        stack.append(self)
+        self.region = None
+        if torch.autograd._profiler_enabled():
+            self.region = torch.profiler.record_function(self.name)
+            self.region.__enter__()
+        self.start = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        self._sync()
-        self.samples.append(time.perf_counter() - self._t0)
-        if len(self.samples) > self.window:
-            self.samples.pop(0)
+        global _root
+        end = time.perf_counter_ns()
+        if self.region is not None:
+            self.region.__exit__(*exc)
+        self.stack.pop()
+        if self.root == self.id:
+            _root = None
+        rec = Span(self.name, self.attrs, self.start, end, self.id, self.parent,
+                   threading.get_ident(), self.root)
+        with _lock:
+            _done.append(rec)
+        return False
 
-    def stats(self) -> dict:
-        if not self.samples:
-            return {}
-        s = sorted(self.samples)
-        n = len(s)
-        return {
-            "mean_ms": 1000 * sum(s) / n,
-            "p50_ms": 1000 * s[n // 2],
-            "p95_ms": 1000 * s[min(n - 1, int(n * 0.95))],
-            "steps_per_sec": n / sum(s),
-        }
+
+def span(name: str, **attrs):
+    """A context that records the enclosed region as a span while the
+    tracer is on, and the shared no-op context while it is off."""
+    if not _on:
+        return _NOOP
+    return _Open(name, attrs)
+
+
+def enable() -> None:
+    global _on
+    _on = True
+
+
+def disable() -> None:
+    global _on
+    _on = False
+
+
+def take() -> List[Span]:
+    """The spans finished since the last take, in the order they ended."""
+    global _done
+    with _lock:
+        out, _done = _done, []
+    return out
+
+
+def trace_offset_ns(prof) -> int:
+    """ns to add to a span's stamp to place it on the clock of the finished
+    torch.profiler.profile `prof`: ns after the profile's start, which is on
+    `time.time_ns`'s clock."""
+    start = prof.profiler.kineto_results.trace_start_ns()
+    return time.time_ns() - time.perf_counter_ns() - start

@@ -13,12 +13,13 @@ readers and profiling hooks.
 - Each command refuses without a card unless device="cpu" is passed, and
   `python -m rodynrf_tpu_torch.preprocess` says so; so do the library
   entry points under them (`generate_motion_masks`, `load_raft`,
-  `load_dpt`) and `StepTimer`.
+  `load_dpt`).
 - rodynrf_tpu_torch/data/colmap.py reads tests/test_extras.py's synthetic
   sparse model as the JAX package's colmap.py does, and converts it to the
   same transforms and poses_bounds.
-- rodynrf_tpu_torch/utils/profiling.py: `trace` writes a Chrome trace that
-  holds an `annotate` region, and `StepTimer` reports its statistics.
+- rodynrf_tpu_torch/utils/profiling.py: an enabled `span` shows as a region
+  of its name in a CPU profile and is returned by `take` once; a disabled
+  one records nothing (more in test_torch_tracing.py).
 """
 
 import json
@@ -92,8 +93,7 @@ def test_commands_refuse_without_a_card(main, tmp_path):
         assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
-@pytest.mark.parametrize("entry", ["generate_motion_masks", "load_raft", "load_dpt",
-                                   "StepTimer"])
+@pytest.mark.parametrize("entry", ["generate_motion_masks", "load_raft", "load_dpt"])
 def test_library_entry_points_refuse_without_a_card(entry, tmp_path):
     from rodynrf_tpu_torch.preprocess import dpt, motion_masks, raft
 
@@ -101,8 +101,7 @@ def test_library_entry_points_refuse_without_a_card(entry, tmp_path):
         pytest.skip("a card is present")
     call = {"generate_motion_masks": lambda: motion_masks.generate_motion_masks(str(tmp_path)),
             "load_raft": lambda: raft.load_raft(str(tmp_path / "none.pth")),
-            "load_dpt": lambda: dpt.load_dpt(str(tmp_path / "none.pt")),
-            "StepTimer": lambda: profiling.StepTimer()}[entry]
+            "load_dpt": lambda: dpt.load_dpt(str(tmp_path / "none.pt"))}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 
@@ -123,17 +122,19 @@ def test_colmap_matches_jax(tmp_path):
                                   jcolmap.qvec2rotmat(np.array([0.5, 0.5, 0.5, 0.5])))
 
 
-def test_profiling_on_the_cpu(tmp_path):
+def test_profiling_on_the_cpu():
     x = torch.randn(64, 64)
-    with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("matmul_region"):
+    profiling.enable()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with profiling.span("matmul_region", size=64):
+                (x @ x).sum()
+        profiling.disable()
+        with profiling.span("unrecorded"):
             (x @ x).sum()
+    finally:
+        profiling.disable()
     assert "matmul_region" in {e.key for e in prof.key_averages()}
-    assert "matmul_region" in (tmp_path / "trace.json").read_text()
-    timer = profiling.StepTimer(window=3, device="cpu")
-    for _ in range(5):
-        with timer:
-            (x @ x).sum()
-    stats = timer.stats()
-    assert len(timer.samples) == 3 and set(stats) == {"mean_ms", "p50_ms", "p95_ms",
-                                                      "steps_per_sec"}
+    (s,) = profiling.take()
+    assert (s.name, s.attrs, s.parent, s.root) == ("matmul_region", {"size": 64}, None, s.id)
+    assert s.end_ns > s.start_ns and profiling.take() == []
