@@ -232,13 +232,27 @@ result):
      masks equal except where the pooled alpha lies within 1e-5 of the
      threshold); one `quality` JSON line and a `main_path` line, path
      `quality`;
+  16. the fused VM sampler's one-launch forward (ops/vm_sample.py) at the
+     render cells' 640³ chunk: 8,192 rays of an NDC frame × 578 samples,
+     the dynamic field merged (strides 1/2/4) and the static one strided,
+     bf16 tables of the recipe's widths: the kernel bit for bit against the
+     plain path and today's autograd forward, one launch a call; each
+     timed (CUDA events; the kernel's device time from the profiler)
+     against the kernel's byte bound, per sample (rows, line taps, xyz,
+     features out) and distinct (the rows and lines the chunk touches, read
+     once); the kernel also on uniform random samples (no locality); one
+     `vm_sample` JSON line. Its launches on the main paths are counted
+     from 0 on each: none in a train path (every pass needs a gradient),
+     some in the CLI run's evaluation, render_only, the compact render and
+     the quality run; the mesh export's are recorded;
   6. (printed last) a `main_path` JSON line per path, one JSON line of
-     kernels, the nvidia-smi line, and the result line.
+     kernels (`vm_sample`'s times from phase 16, its launches by path), the
+     nvidia-smi line, and the result line.
 
 `python3 chip_smoke.py --kernels-only` runs phases 1-3 alone and prints the
 cases as one `kernel_cases` JSON line; `python3 chip_smoke.py
 --parallel-only` runs phases 1, 2 and 13; `--davis-only` phases 1, 2 and 14;
-`--quality-only` phases 1, 2 and 15.
+`--quality-only` phases 1, 2 and 15; `--sampler-only` phases 1, 2 and 16.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -360,6 +374,17 @@ QUALITY_ITERS = 150
 QUALITY_EVENTS = {"upsample": [25, 50, 75, 100], "focal_on": 100, "pose_freeze": 76}
 QUALITY_EXPORT_DIM = 32  # export_alpha's max_dim for the card-vs-CPU comparison
 QUALITY_MASK_ATOL = 1e-5  # masks may differ only where alpha lies this near the threshold
+# phase 16: the sampler's forward at the render cells' 640³ chunk (portbench
+# render traffic: 8,192-ray chunks of 270×480 NDC frames, 578 samples)
+SAMPLER_SOURCES = ("vm_sample",)
+# the sampler kernel's launches on the runs that leave no `main_path` record
+# (render, compact render, mesh export), by path; filled as they run
+SAMPLER_LAUNCHES = {}
+SAMPLER_RAYS, SAMPLER_SAMPLES, SAMPLER_FRAME = 8192, 578, (270, 480)
+SAMPLER_FIELDS = {  # (grids' channels per orientation, strides, layout)
+    "dynamic": (((16, 4, 4), (16, 4, 4), (48, 12, 12)), (1, 2, 4), "merged"),
+    "static": (((16, 4, 4), (48, 12, 12)), (1,), "strided"),
+}
 
 
 def log(*a):
@@ -977,6 +1002,8 @@ def policies(S) -> dict:
 
 
 def counters():
+    """Launches of the table-gradient kernels (`sampler_launches` reads the
+    sampler's forward kernel)."""
     from rodynrf_tpu_torch.ops.coalesced import coalesce_table_grad
     from rodynrf_tpu_torch.ops.segsum import segment_rows_sum_factored
 
@@ -987,10 +1014,30 @@ def counters():
 def reset_counters():
     from rodynrf_tpu_torch.ops.coalesced import coalesce_table_grad
     from rodynrf_tpu_torch.ops import segsum
+    from rodynrf_tpu_torch.ops.vm_sample import vm_sample
 
     coalesce_table_grad.launches = 0
     segsum.segment_rows_sum_factored.launches = 0
     segsum.sorted_segment_rows_sum.launches = 0
+    vm_sample.launches = 0
+
+
+def sampler_launches() -> int:
+    """Launches of the sampler's forward kernel since `reset_counters`."""
+    from rodynrf_tpu_torch.ops.vm_sample import vm_sample
+
+    return vm_sample.launches
+
+
+def sampler_run(path: str, fn):
+    """fn() with the sampler kernel's count set to 0 before it; the count
+    after it goes to SAMPLER_LAUNCHES[path]. Returns fn's result."""
+    from rodynrf_tpu_torch.ops.vm_sample import vm_sample
+
+    vm_sample.launches = 0
+    out = fn()
+    SAMPLER_LAUNCHES[path] = vm_sample.launches
+    return out
 
 
 def run_steps(tr, n: int, label: str):
@@ -1023,7 +1070,7 @@ def drive_path(tr, path: str, smi: str, kernel_ms_per_step):
     t0 = time.time()
     run_steps(tr, TIMED_STEPS, f"{path} timed")
     step_s = (time.time() - t0) / TIMED_STEPS
-    launches = counters()
+    launches, sampled = counters(), sampler_launches()
     peak = torch.cuda.max_memory_allocated()
     log(f"[{path}] {step_s * 1e3:.1f} ms/step, {tr.args.batch_size / step_s:.1f} rays/s, "
         f"peak memory {peak / 2**30:.2f} GiB, layouts {layouts}, {policies(S)}, launches "
@@ -1034,6 +1081,8 @@ def drive_path(tr, path: str, smi: str, kernel_ms_per_step):
                                  f"{n_steps} steps")
         if per_step[k] == 0 and path == "default":
             raise AssertionError(f"the default path launched no {k} kernel")
+    if sampled:  # every pass of these steps needs a gradient
+        raise AssertionError(f"{path}: the sampler's forward kernel launched {sampled} times")
     # where the step's device time goes (after the counts were read)
     prof = profile_step(tr)
     record = {
@@ -1041,7 +1090,8 @@ def drive_path(tr, path: str, smi: str, kernel_ms_per_step):
         **policies(S), "n_samples": S.n_samples, "ms_per_step": step_s * 1e3,
         "rays_per_s": tr.args.batch_size / step_s, "peak_gib": peak / 2**30,
         "steps": n_steps, "timed_steps": TIMED_STEPS, "launches": launches,
-        "launches_per_step": per_step, "table_grad_kernel_ms_per_step": kernel_ms_per_step,
+        "sampler_launches": sampled, "launches_per_step": per_step,
+        "table_grad_kernel_ms_per_step": kernel_ms_per_step,
         **prof,
         # the profiled step's device time over the unprofiled steps' wall
         # time: the step's work is the same every step, so this estimates
@@ -1224,11 +1274,13 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
         t0 = time.time()
         rep = cli_main(argv, device)
         cli_s = time.time() - t0
-        launches = counters()
+        launches, cli_sampled = counters(), sampler_launches()
         peak_cli = torch.cuda.max_memory_allocated()
         want = {k: v * CLI_STEPS for k, v in per_step.items()}
         if launches != want:
             raise AssertionError(f"CLI run: kernel launches {launches} != {want}")
+        if device == "cuda" and cli_sampled == 0:  # the evaluation renders
+            raise AssertionError("CLI run: the sampler's forward kernel launched no time")
         if not all(math.isfinite(x) for x in rep["losses"]) or len(rep["losses"]) != CLI_STEPS:
             raise AssertionError(f"CLI run: losses {rep['losses']}")
         if len(rep["psnrs"]) != CLI_SCENE["T"] or not all(
@@ -1246,9 +1298,12 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        rrep = cli_main(argv + ["--render_only", "1", "--ckpt", rep["ckpt"]], device)
+        rrep = sampler_run("render", lambda: cli_main(
+            argv + ["--render_only", "1", "--ckpt", rep["ckpt"]], device))
         render_s = time.time() - t0
         peak_render = torch.cuda.max_memory_allocated()
+        if device == "cuda" and SAMPLER_LAUNCHES["render"] == 0:
+            raise AssertionError("render_only: the sampler's forward kernel launched no time")
         if rrep["psnrs"] != rep["psnrs"]:
             raise AssertionError(f"render_only PSNRs {rrep['psnrs']} != the final evaluation's "
                                  f"{rep['psnrs']}")
@@ -1278,7 +1333,8 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
         "chunk": 8192, "layouts": "bf16, static strided, dynamic merged (eval budget)",
         "ms_per_frame_median": med, "rays_per_s": H * W / (med / 1e3),
         "frame_ms": [1e3 * t for t in rrep["frame_s"]], "peak_gib": peak_render / 2**30,
-        "render_only_s": render_s, "chunk_profile": chunk_profile, "card": smi,
+        "render_only_s": render_s, "sampler_launches": SAMPLER_LAUNCHES["render"],
+        "chunk_profile": chunk_profile, "card": smi,
     }
     cli = {
         "scene_write_s": write_s, "loader_s": rep["loader_s"], "train_s": rep["train_s"],
@@ -1291,7 +1347,8 @@ def drive_cli(smi: str, per_step: dict, grid, n_samples: int, device: str = "cud
     log(json.dumps({"render": render}))
     log(json.dumps({"cli": cli}))
     log(json.dumps({"render_compact": render_compact}))
-    return {"path": "cli", "launches": launches, "launches_per_step": per_step}
+    return {"path": "cli", "launches": launches, "sampler_launches": cli_sampled,
+            "launches_per_step": per_step}
 
 
 def write_lpips_dump(path: Path, net: str, seed: int) -> None:
@@ -1369,9 +1426,13 @@ def drive_mesh_lpips(argv, ckpt: str, logdir: Path, grid, smi: str, device: str 
         return {**fn(*a, **k), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
     # 12a. --export_mesh 1 of phase 7's checkpoint (random weights)
-    record["full_width"] = with_peak(
-        lambda: cli_main(argv + ["--export_mesh", "1", "--ckpt", ckpt], device)["mesh"])
-    log(f"[mesh] 12a full width {record['full_width']} ({smi})")
+    record["full_width"] = sampler_run("mesh", lambda: with_peak(
+        lambda: cli_main(argv + ["--export_mesh", "1", "--ckpt", ckpt], device)["mesh"]))
+    # the export's dense_alpha samples through ops/grid_sample.sample_vm, not
+    # the packed sampler: its count is recorded, not required
+    record["sampler_launches"] = SAMPLER_LAUNCHES["mesh"]
+    log(f"[mesh] 12a full width {record['full_width']}, sampler kernel launches "
+        f"{SAMPLER_LAUNCHES['mesh']} ({smi})")
 
     # 12b. the reference's trained basin field, at its grid and grown to `grid`
     params, st_cfg, dy_cfg, aabb, _, focal, _ = _load_reference_th_pair(BASIN_TH)
@@ -1801,10 +1862,13 @@ def drive_compact_render(argv, rep, smi: str, device: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    crep = cli_main(argv + ["--render_only", "1", "--ckpt", rep["ckpt"], "--alpha_mask",
-                            MASK_NPZ, "--compact_eval", "1"], device)
+    crep = sampler_run("render_compact", lambda: cli_main(
+        argv + ["--render_only", "1", "--ckpt", rep["ckpt"], "--alpha_mask", MASK_NPZ,
+                "--compact_eval", "1"], device))
     render_s = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
+    if device == "cuda" and SAMPLER_LAUNCHES["render_compact"] == 0:
+        raise AssertionError("compact render: the sampler's forward kernel launched no time")
     if len(crep["psnrs"]) != CLI_SCENE["T"] or not all(math.isfinite(p) for p in crep["psnrs"]):
         raise AssertionError(f"compact render PSNRs {crep['psnrs']}")
     flat = crep["flat_log"]
@@ -1846,6 +1910,7 @@ def drive_compact_render(argv, rep, smi: str, device: str):
         "rays_per_s": H * W / (med / 1e3), "frame_ms": [1e3 * t for t in crep["frame_s"]],
         "flat_N": [n for n, _, _ in flat], "occupied_share": [c / rs for _, c, rs in flat],
         "peak_gib": peak / 2**30, "render_only_s": render_s, "psnrs": crep["psnrs"],
+        "sampler_launches": SAMPLER_LAUNCHES["render_compact"],
         "oracle": {"N": N, "occupied": total, "samples": RS, "bit_exact": exact, "gaps": gaps},
         "card": smi,
     }
@@ -3150,7 +3215,7 @@ def drive_quality(smi: str, device: str = "cuda", scene=None, n_iters: int = QUA
         reset_counters()
         rec = quality_run.run("ndc", n_iters, scene=scene, device=device, out=str(root),
                               extra=extra, log=lambda *a: None)
-        launches = counters()
+        launches, sampled = counters(), sampler_launches()
         run_s = time.time() - t0
         ckpt, thres = rec["ckpt"], 1e-4
         t1 = time.time()
@@ -3191,6 +3256,8 @@ def drive_quality(smi: str, device: str = "cuda", scene=None, n_iters: int = QUA
         raise AssertionError(f"15: a non-finite metric: {values}")
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"15: a table-gradient kernel launched no time: {launches}")
+    if device == "cuda" and sampled == 0:  # the evaluation renders without a gradient
+        raise AssertionError("15: the sampler's forward kernel launched no time")
     want = expected_events if expected_events is not None else rec["events_expected"]
     if rec["events"] != want or rec["events_expected"] != want:
         raise AssertionError(f"15: events {rec['events']}, the plan's {rec['events_expected']}, "
@@ -3202,9 +3269,147 @@ def drive_quality(smi: str, device: str = "cuda", scene=None, n_iters: int = QUA
         raise AssertionError(f"15: the card's mask disagrees with the CPU's: {agree}")
     record = {"path": "quality", "grid": rec["grid_final"], "n_samples": rec["n_samples"],
               "ms_per_step": rec["ms_per_step_median"], "steps": n_iters,
-              "launches": launches, "peak_gib": rec["peak_gib"], "card": smi}
+              "launches": launches, "sampler_launches": sampled, "peak_gib": rec["peak_gib"],
+              "card": smi}
     log(json.dumps({"main_path": record}))
     return record, info
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the fused VM sampler's one-launch forward
+# ---------------------------------------------------------------------------
+
+
+def render_chunk_points(device: str = "cuda") -> torch.Tensor:
+    """Normalized xyz [8,192 × 578, 3] of a render chunk as the port samples
+    it: the first 8,192 pixels of a 270×480 NDC frame (the recipe's 30°
+    field of view, the camera at the origin) through `sample_xyz`."""
+    from rodynrf_tpu_torch.fields.dynamic import normalize_coord
+    from rodynrf_tpu_torch.render.renderer import rays_for_view
+    from rodynrf_tpu_torch.render.sampling import sample_xyz
+
+    H, W = SAMPLER_FRAME
+    focal = max(H, W) / 2.0 / math.tan(math.pi / 6.0)
+    pose = np.eye(4, dtype=np.float32)[:3]
+    rays = rays_for_view(pose, focal, H, W, "ndc", device=device)[:SAMPLER_RAYS]
+    aabb = torch.tensor([[-1.5, -1.67, -1.0], [1.5, 1.67, 1.0]], device=device)
+    with torch.inference_mode():
+        xyz, _, _ = sample_xyz(rays, SAMPLER_SAMPLES, "ndc", (0.0, 1.0), aabb, 0.0, None)
+        return normalize_coord(xyz.reshape(-1, 3), aabb).contiguous()
+
+
+def sampler_bytes(packed, xyz) -> dict:
+    """The kernel's bytes at these inputs: per sample (each sample's rows,
+    its two line taps per orientation and stride, its xyz and its features,
+    as if nothing were shared) and distinct (each table row the samples
+    touch and each line table read once, xyz and the features once)."""
+    from rodynrf_tpu_torch.ops import fused_vm
+    from rodynrf_tpu_torch.ops.vm_sample import layout
+
+    L, N = layout(packed), xyz.shape[0]
+    el = packed.tables[0].element_size()
+    row = [t.shape[1] * el for t in packed.tables]
+    out = 4 * N * sum(L.widths())
+    per_row = sum(row[o] * (1 if L.merged else L.n_strides) for o in range(3))
+    taps = 2 * L.n_strides * sum(L.cp) * el
+    distinct = 0
+    for o in range(3):
+        if L.merged:
+            rows = fused_vm.merged_rows_weights(packed, xyz, o)[0]
+        else:
+            rows = torch.cat(fused_vm.plane_rows_weights(packed, xyz, o)[0])
+        distinct += int(torch.unique(rows).numel()) * row[o]
+    lines = sum(t.numel() * el for lt in packed.line_tables for t in lt)
+    return {"per_sample": N * (per_row + taps + 12) + out,
+            "distinct": distinct + lines + 12 * N + out}
+
+
+def drive_sampler(smi: str, device: str = "cuda") -> dict:
+    """Phase 16: `vm_sample` at the render cells' 640³ chunk, per field."""
+    from rodynrf_tpu_torch.ops import fused_vm, vm_sample as vs
+    from rodynrf_tpu_torch.ops.grid_sample import MAT_MODE, VEC_MODE
+
+    t0 = time.time()
+    gen = torch.Generator(device=device).manual_seed(16)
+    chunk = render_chunk_points(device)
+    rand = (torch.rand(chunk.shape, generator=gen, device=device) * 2 - 1).contiguous()
+    info = {"grid": WALK_FINAL_GRID, "samples": chunk.shape[0],
+            "ptxas": ptxas_info(BUILD_REPORTS.get("vm_sample", "")), "fields": {}}
+    for field, (comps, strides, want_layout) in SAMPLER_FIELDS.items():
+        grid = WALK_FINAL_GRID
+        grids = []
+        for n_comp in comps:
+            planes = [0.1 * torch.randn((n_comp[i], grid[MAT_MODE[i][1]], grid[MAT_MODE[i][0]]),
+                                        generator=gen, device=device) for i in range(3)]
+            lines = [0.1 * torch.randn((n_comp[i], grid[VEC_MODE[i]]), generator=gen,
+                                       device=device) for i in range(3)]
+            grids.append((planes, lines))
+        with torch.inference_mode():
+            packed = fused_vm.pack_vm(grids, strides, torch.bfloat16, "auto",
+                                      fused_vm.EVAL_MERGED_BYTES_LIMIT)
+        if packed.meta["layout"] != want_layout:
+            raise AssertionError(f"16: {field} packs {packed.meta['layout']}, not {want_layout}")
+
+        def kernel(x=chunk):
+            with torch.inference_mode():
+                return vs.vm_sample(packed, x)
+
+        def plain():
+            with torch.inference_mode():
+                return fused_vm.sample_vm_fused_plain(packed, chunk)
+
+        before = vs.vm_sample.launches
+        got = kernel()
+        if vs.vm_sample.launches != before + 1:
+            raise AssertionError("16: vm_sample did not count one launch a call")
+        want = plain()
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
+        del want
+        kernel_ms, kernel_spread = median_ms(kernel, windows=5, reps=10)
+        device_ms = device_profile(kernel, reps=10)[0]
+        random_ms = median_ms(lambda: kernel(rand), windows=3, reps=5)[0]
+        plain_ms = median_ms(plain, windows=3, reps=3)[0]
+        torch.cuda.empty_cache()
+
+        # today's autograd forward: tables packed from leaves that need a
+        # gradient, the graph dropped after each call
+        leaves = [([p.requires_grad_(True) for p in ps], [ln.requires_grad_(True) for ln in ls])
+                  for ps, ls in grids]
+        packed_g = fused_vm.pack_vm(leaves, strides, torch.bfloat16, "auto",
+                                    fused_vm.EVAL_MERGED_BYTES_LIMIT)
+        autograd = lambda: fused_vm.sample_vm_fused_plain(packed_g, chunk)  # noqa: E731
+        ref = autograd()
+        same_autograd = all(torch.equal(a.view(torch.int32), b.detach().view(torch.int32))
+                            for a, b in zip(got, ref))
+        del ref
+        autograd_ms = median_ms(autograd, windows=3, reps=2)[0]
+        del packed_g, leaves
+        torch.cuda.empty_cache()
+        nbytes, lay = sampler_bytes(packed, chunk), vs.layout(packed)
+        rec = {
+            "layout": packed.meta["layout"], "strides": strides, "widths": lay.widths(),
+            "vec": lay.vec, "units": lay.units,
+            "bit_for_bit_plain": same, "bit_for_bit_autograd": same_autograd,
+            "ms": kernel_ms, "spread_ms": kernel_spread, "device_ms": device_ms,
+            "random_ms": random_ms, "plain_ms": plain_ms, "autograd_ms": autograd_ms,
+            "bytes": nbytes,
+            "bound_ms": {k: v / HBM_BYTES_PER_S * 1e3 for k, v in nbytes.items()},
+        }
+        rec["bound_share"] = {k: b / device_ms for k, b in rec["bound_ms"].items()}
+        info["fields"][field] = rec
+        log(f"[16] {field} {rec['layout']} {strides}: kernel {kernel_ms:.3f} ms (±"
+            f"{kernel_spread:.3f}; device {device_ms:.3f}; random xyz {random_ms:.3f}), plain "
+            f"{plain_ms:.2f}, autograd forward {autograd_ms}; bound {rec['bound_ms']} "
+            f"({rec['bound_share']}); bit for bit {same} / {same_autograd} ({smi})")
+        del packed, grids, got
+        torch.cuda.empty_cache()
+        if not (same and same_autograd):
+            raise AssertionError(f"16: {field}: the kernel differs from the autograd path")
+    info["phase_s"] = time.time() - t0
+    info["card"] = smi
+    log(json.dumps({"vm_sample": info}))
+    return info
 
 
 def main() -> int:
@@ -3213,6 +3418,7 @@ def main() -> int:
     parallel_only = "--parallel-only" in sys.argv[1:]
     davis_only = "--davis-only" in sys.argv[1:]
     quality_only = "--quality-only" in sys.argv[1:]
+    sampler_only = "--sampler-only" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
@@ -3228,13 +3434,20 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    reports = cuda_build.build(KERNELS + JPEG_SOURCES)
+    reports = cuda_build.build(KERNELS + JPEG_SOURCES + SAMPLER_SOURCES)
     BUILD_REPORTS.update(reports)
     log(f"[build] {time.time() - t0:.1f} s (compiled: {sorted(reports) or 'none, cached'})")
     for name, rep in reports.items():
         for fn, info in ptxas_summary(rep):
             log(f"[build] {name}: {fn}: {info}")
 
+    if sampler_only:  # phase 16 alone
+        drive_sampler(smi)
+        log(f"[done] {time.time() - t_start:.1f} s")
+        log(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": count}}), flush=True)
+        return 0
     if quality_only:  # phase 15 alone
         drive_quality(smi)
         log(f"[done] {time.time() - t_start:.1f} s")
@@ -3338,6 +3551,10 @@ def main() -> int:
     # evaluation and the mask export
     records.append(drive_quality(smi)[0])
 
+    # 16. the sampler's one-launch forward at the 640³ render chunk
+    sampler = drive_sampler(smi)
+    torch.cuda.empty_cache()
+
     # 13. the distributed step (a NCCL group of its own, torn down after)
     records.extend(drive_distributed(scene, smi))
 
@@ -3418,6 +3635,23 @@ def main() -> int:
             "batch_device_ms": {k: (b.get("device_ms") or {}).get(name)
                                 for k, b in davis["jpeg_batch"].items()},
         })
+    # the sampler's forward: launches on the main paths (the records' and
+    # the render, compact render and mesh runs'), times from phase 16
+    sampler_by_path = {r["path"]: r["sampler_launches"] for r in records
+                       if "sampler_launches" in r}
+    sampler_by_path.update(SAMPLER_LAUNCHES)
+    dyn = sampler["fields"]["dynamic"]  # the larger field of the 640³ chunk
+    kernels.append({
+        "name": "vm_sample", "route": "cuda", "source": "rodynrf_tpu_torch/csrc/vm_sample.cu",
+        "replaces": "rodynrf_tpu_torch/ops/fused_vm.py sample_vm_fused_plain's forward (the "
+                    "JAX package's sampler is XLA; no TPU kernel)",
+        "launches": sum(sampler_by_path.values()), "launches_by_path": sampler_by_path,
+        "max_abs_err": 0.0, "ms": dyn["ms"], "plain_ms": dyn["plain_ms"],
+        "autograd_ms": dyn["autograd_ms"], "device_ms": dyn["device_ms"],
+        "bound_ms": dyn["bound_ms"]["distinct"], "bound_by": "bytes (distinct)",
+        "library_ms": None, "case": f"dynamic {dyn['layout']}, {sampler['samples']} samples",
+        "cases": sampler["fields"], "ptxas": sampler["ptxas"],
+    })
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was launched no time on the main paths")

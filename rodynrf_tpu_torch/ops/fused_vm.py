@@ -17,6 +17,11 @@ With a gather dtype (bf16) the tables are cast inside the pack, so the f32
 parameters take their gradient through the cast; interpolation, MLPs and
 optimizers stay f32.
 
+`sample_vm_fused` computes every grid of a pack in one launch of the
+hand-written kernel `csrc/vm_sample.cu` (ops/vm_sample.py) wherever nothing
+needs a gradient on the card, and through `sample_vm_fused_plain`, the
+differentiable path below, otherwise.
+
 Line factors use the 2-tap lerp of `rodynrf_tpu/ops/grid_sample.sample_line`
 rather than the JAX package's hat-weight matmul: the two are the same
 function (tests/test_fused_vm.py holds them equal to 1e-6), and in eager
@@ -36,8 +41,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .coalesced import merged_sample, planes_sample
 from .grid_sample import MAT_MODE, VEC_MODE, _strided_len
+from .vm_sample import vm_sample
 
 # 'auto' picks the merged layout when its tables fit this byte budget (the
 # JAX package's rule, kept so that one command resolves to one layout in both
@@ -442,14 +449,36 @@ def merged_rows_weights(packed: PackedVM, xyz: torch.Tensor, o: int):
     return seg_y * Lx + seg_x, torch.stack(w_strides, dim=1)
 
 
+def _needs_grad(packed: PackedVM, xyz: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (
+        xyz.requires_grad
+        or any(t.requires_grad for t in packed.tables)
+        or any(t.requires_grad for lt in packed.line_tables for t in lt))
+
+
 def sample_vm_fused(packed: PackedVM, xyz: torch.Tensor) -> List[torch.Tensor]:
     """Sample every grid of `packed` at xyz [N, 3] (normalized [-1, 1]).
 
     Returns one [N, sum_o C_g_o * n_strides] tensor per grid, channels
     ordered stride-major then orientation (reference cat order,
-    tensoRF.py:670-721). One gather and one table-gradient launch per
-    orientation cover every stride, in either layout.
+    tensoRF.py:670-721).
+
+    The inputs decide the route. On the card, when nothing needs a gradient
+    (grad mode off, or no table and not xyz requiring one), one launch of
+    the `vm_sample` kernel (ops/vm_sample.py) computes every grid, bit for
+    bit `sample_vm_fused_plain`. Otherwise, and on the CPU,
+    `sample_vm_fused_plain`, the differentiable path.
     """
+    if xyz.device.type == "cuda" and not _needs_grad(packed, xyz):
+        with span("ops.vm_sample"):
+            return vm_sample(packed, xyz)
+    return sample_vm_fused_plain(packed, xyz)
+
+
+def sample_vm_fused_plain(packed: PackedVM, xyz: torch.Tensor) -> List[torch.Tensor]:
+    """`sample_vm_fused` in PyTorch, differentiable: one gather and one
+    table-gradient launch per orientation cover every stride, in either
+    layout."""
     meta = packed.meta
     nS = len(meta["strides"])
     N = xyz.shape[0]
