@@ -31,6 +31,10 @@ rule).
 
 The three Adam optimizers (fields, pose, fov) update the parameters in
 place; their learning rates come from the host schedule on every step.
+
+With the tracer on (utils/profiling), each sequential pass runs inside a
+`train.pass` span and each field's grid regularizers inside a
+`train.regularizers` span.
 """
 
 from __future__ import annotations
@@ -524,7 +528,10 @@ def _run_local(params, S: StepStatics, aabb, specs, packs):
     for n in _pass_order(specs):
         sp = specs[n]
         shared = res[sp.static_from][1] if sp.static_from else None
-        res[n] = _dual_pass(params, S, aabb, sp, packs, shared_st=shared)
+        # grad: False where the pass's rays and static evaluation are
+        # detached (A-D)
+        with span("train.pass", name=n, grad=not sp.detach_static):
+            res[n] = _dual_pass(params, S, aabb, sp, packs, shared_st=shared)
     return res
 
 
@@ -928,25 +935,26 @@ def train_loss(
         metrics["loss_distortion"] = dist
 
     # grid regularizers, dynamic field (train.py:1718-1753)
-    if wts.ortho > 0:
-        ortho = line_orthogonality(params["dynamic"]["density_line"]) + line_orthogonality(
-            params["dynamic"]["app_line"]
-        )
-        total = total + wts.ortho * ortho
-        metrics["reg"] = ortho
-    if wts.l1 > 0:
-        l1d = dyn_field.density_l1(params["dynamic"], S.dynamic_cfg)
-        total = total + wts.l1 * l1d
-        metrics["loss_reg_L1_density"] = l1d
     tv_mult = S.lr_factor ** (it + 1.0)  # (train.py:1735: *= lr_factor before use)
-    if wts.tv_density > 0:
-        tvd = dyn_field.tv_density(params["dynamic"]) + dyn_field.tv_blending(params["dynamic"])
-        total = total + wts.tv_density * tv_mult * tvd
-        metrics["reg_tv_density"] = tvd
-    if wts.tv_app > 0:
-        tva = dyn_field.tv_app(params["dynamic"])
-        total = total + wts.tv_app * tv_mult * tva
-        metrics["reg_tv_app"] = tva
+    with span("train.regularizers", field="dynamic"):
+        if wts.ortho > 0:
+            ortho = line_orthogonality(params["dynamic"]["density_line"]) + line_orthogonality(
+                params["dynamic"]["app_line"]
+            )
+            total = total + wts.ortho * ortho
+            metrics["reg"] = ortho
+        if wts.l1 > 0:
+            l1d = dyn_field.density_l1(params["dynamic"], S.dynamic_cfg)
+            total = total + wts.l1 * l1d
+            metrics["loss_reg_L1_density"] = l1d
+        if wts.tv_density > 0:
+            tvd = dyn_field.tv_density(params["dynamic"]) + dyn_field.tv_blending(params["dynamic"])
+            total = total + wts.tv_density * tv_mult * tvd
+            metrics["reg_tv_density"] = tvd
+        if wts.tv_app > 0:
+            tva = dyn_field.tv_app(params["dynamic"])
+            total = total + wts.tv_app * tv_mult * tva
+            metrics["reg_tv_app"] = tva
 
     # ---- PASS E: non-detached rays -> static + camera gradients
     # (train.py:1755-1823)
@@ -965,18 +973,19 @@ def train_loss(
         metrics["loss_distortion_static"] = dist_s
 
     # static regs (train.py:1863-1887)
-    if wts.l1 > 0:
-        l1s = stat_field.density_l1(params["static"], S.static_cfg)
-        total = total + wts.l1 * l1s
-        metrics["loss_reg_L1_density_s"] = l1s
-    if wts.tv_density > 0:
-        tvs = stat_field.tv_density(params["static"])
-        total = total + wts.tv_density * tv_mult * tvs
-        metrics["reg_tv_density_static"] = tvs
-    if wts.tv_app > 0:
-        tvas = stat_field.tv_app(params["static"])
-        total = total + wts.tv_app * tv_mult * tvas
-        metrics["reg_tv_app_static"] = tvas
+    with span("train.regularizers", field="static"):
+        if wts.l1 > 0:
+            l1s = stat_field.density_l1(params["static"], S.static_cfg)
+            total = total + wts.l1 * l1s
+            metrics["loss_reg_L1_density_s"] = l1s
+        if wts.tv_density > 0:
+            tvs = stat_field.tv_density(params["static"])
+            total = total + wts.tv_density * tv_mult * tvs
+            metrics["reg_tv_density_static"] = tvs
+        if wts.tv_app > 0:
+            tvas = stat_field.tv_app(params["static"])
+            total = total + wts.tv_app * tv_mult * tvas
+            metrics["reg_tv_app_static"] = tvas
 
     if S.optimize_poses:
         # static motion losses (train.py:1895-1958); focal NOT detached

@@ -102,9 +102,10 @@ class _Open:
         return False
 
 
-def span(name: str, **attrs):
+def span(name: str, /, **attrs):
     """A context that records the enclosed region as a span while the
-    tracer is on, and the shared no-op context while it is off."""
+    tracer is on, and the shared no-op context while it is off. `name` is
+    positional only, so an attribute may be called `name` too."""
     if not _on:
         return _NOOP
     return _Open(name, attrs)
